@@ -1,0 +1,36 @@
+"""Policy model zoo mirroring the reference experiment grid.
+
+Families (``scripts/experiments/*.py`` of the reference):
+
+- ``MLP-default``: pi/vf [64, 64], Tanh
+- ``MLP-deep``: pi/vf [64]*4, ReLU
+- ``MLP-wide-deep``: pi/vf [128]*4, ReLU
+- ``CNN``: not ported yet (ROADMAP.md, queue 1, "models/cnn.py").
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hex_gym_env_tpu_torch.models.mlp import MlpPolicy
+
+
+def make_policy(
+    family: str, n_actions: int, generator: torch.Generator | None = None
+) -> MlpPolicy:
+    """Build a policy module (on the CPU) for one of the reference's families."""
+    if family == "MLP-default":
+        return MlpPolicy(n_actions, generator=generator)
+    if family == "MLP-deep":
+        return MlpPolicy(n_actions, (64,) * 4, (64,) * 4, "relu", generator)
+    if family == "MLP-wide-deep":
+        return MlpPolicy(n_actions, (128,) * 4, (128,) * 4, "relu", generator)
+    if family == "CNN":
+        raise NotImplementedError(
+            "the CNN policy is not ported yet: ROADMAP.md, queue 1, item "
+            "'models/cnn.py'"
+        )
+    raise ValueError(f"unknown policy family: {family!r}")
+
+
+__all__ = ["MlpPolicy", "make_policy"]

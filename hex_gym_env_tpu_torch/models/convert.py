@@ -1,0 +1,100 @@
+"""Carry weights and state across from the JAX package.
+
+The JAX package keeps MLP parameters as flax trees,
+``{"params": {"pi_0": {"kernel", "bias"}, ..., "action_head": ...,
+"value_head": ...}}``, with Dense kernels laid out (in, out).  ``nn.Linear``
+weights are (out, in).  These helpers take such trees (and states) as numpy
+arrays — the caller converts with ``np.asarray`` — so this package never
+imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from hex_gym_env_tpu_torch.core.state import HexState
+from hex_gym_env_tpu_torch.models.mlp import MlpPolicy
+
+_FLAX_HEADS = (("action_head", "action_head"), ("value_head", "value_head"))
+
+
+def _inner(tree: Mapping) -> Mapping:
+    return tree["params"] if "params" in tree else tree
+
+
+def _n_layers(tree: Mapping, tower: str) -> int:
+    return sum(1 for k in tree if k.startswith(f"{tower}_"))
+
+
+def _flax_entries(tree: Mapping):
+    """(state-dict key, flax leaf path) pairs of an MLP tree."""
+    out = []
+    for tower in ("pi", "vf"):
+        for i in range(_n_layers(tree, tower)):
+            out.append((f"{tower}.{i}", f"{tower}_{i}"))
+    out += list(_FLAX_HEADS)
+    return out
+
+
+def flax_state_dict(params_np: Mapping) -> dict[str, torch.Tensor]:
+    """A flax MLP tree (numpy leaves) as an ``MlpPolicy`` state dict.
+
+    Leading axes are kept, so this is also the stacked variant: a bank whose
+    leaves have a leading P axis gives the stacked tensors of
+    ``OpponentBank.params``."""
+    tree = _inner(params_np)
+    sd = {}
+    for key, name in _flax_entries(tree):
+        kernel = np.asarray(tree[name]["kernel"], np.float32)
+        bias = np.asarray(tree[name]["bias"], np.float32)
+        sd[f"{key}.weight"] = torch.from_numpy(np.array(np.swapaxes(kernel, -1, -2)))
+        sd[f"{key}.bias"] = torch.from_numpy(np.array(bias))
+    return sd
+
+
+def flax_to_torch(params_np: Mapping, activation: str = "tanh") -> MlpPolicy:
+    """The port's ``MlpPolicy`` (on the CPU) holding a flax MLP's weights.
+
+    Layer widths are read off the kernels; the activation cannot be, so it
+    is given ("tanh" for MLP-default, "relu" for the deep families)."""
+    tree = _inner(params_np)
+    pi = [np.shape(tree[f"pi_{i}"]["kernel"])[1] for i in range(_n_layers(tree, "pi"))]
+    vf = [np.shape(tree[f"vf_{i}"]["kernel"])[1] for i in range(_n_layers(tree, "vf"))]
+    n_actions = np.shape(tree["action_head"]["kernel"])[1]
+    model = MlpPolicy(n_actions, pi, vf, activation)
+    model.load_state_dict(flax_state_dict(tree))
+    return model
+
+
+_STATE_DTYPES = {
+    "stones": torch.bool,
+    "labels": torch.int32,
+    "to_move": torch.int32,
+    "done": torch.bool,
+    "winner": torch.int32,
+    "empty": torch.int32,
+    "move_count": torch.int32,
+}
+
+
+def state_from_numpy(obj: Any, device=None):
+    """A ``HexState`` or ``RolloutCarry`` of the JAX package, given with
+    array leaves (numpy or anything ``np.asarray`` takes), as the port's
+    tensors on ``device`` (default: the CPU)."""
+
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x)).to(dtype=dtype, device=device)
+
+    if hasattr(obj, "env"):
+        from hex_gym_env_tpu_torch.train.rollout import RolloutCarry
+
+        return RolloutCarry(
+            env=state_from_numpy(obj.env, device),
+            agent_seat=t(obj.agent_seat, torch.int32),
+            use_best=t(obj.use_best, torch.bool),
+            opp_idx=t(obj.opp_idx, torch.int32),
+        )
+    return HexState(**{k: t(getattr(obj, k), d) for k, d in _STATE_DTYPES.items()})

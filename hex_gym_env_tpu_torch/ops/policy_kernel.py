@@ -1,0 +1,333 @@
+"""K2 and K3: the agent pass and the opponent-bank pass as CUDA kernels.
+
+Counterparts of the JAX package's ``ops/pallas_policy.py``:
+
+- K2 ``agent_forward_sample`` (``_agent_kernel``): the agent's MLP forward,
+  masked logits, Gumbel-max sample, log-prob of the sampled action, and the
+  value, in one launch.
+- K3 ``bank_forward_sample`` (``_bank_kernel``): for each row, the pi tower
+  and action head of that row's opponent (a pool slot, or the best at index
+  P), then the masked Gumbel-max sample, in one launch.
+
+Weights travel as flat float32 runs, one per tower, with the kernels laid
+out (in, out) so that the CUDA threads computing neighbouring outputs read
+neighbouring words (layout in ``csrc/hex_common.cuh``):
+
+- agent: the pi tower with its action head, then the vf tower with its
+  value head (``pack_agent``);
+- bank: one row per member, best last, each a pi tower with its action head
+  (``stack_bank``), (P1, S).  The kernel reads each row's member straight
+  from global memory; the TPU's window-masked stack is not needed.
+
+Each pass has a plain PyTorch twin here (``*_twin``) that computes the same
+function from the same packed weights.  The wrappers take the kernel for a
+CUDA tensor and the twin for a CPU tensor (``impl="auto"``); ``"pallas"``
+pins the kernel (raises on a CPU tensor) and ``"lax"`` the twin.
+
+Sampling is a function of uint32 bits (``ops/masked.py``).  With a bits
+tensor given, the kernel and the twin draw the same action from it.
+Without one, the twin draws bits from the generator and the kernel seeds
+its own Philox streams from it (``ops/cuda_lib.philox_seed``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from hex_gym_env_tpu_torch.models.mlp import MlpPolicy
+from hex_gym_env_tpu_torch.ops import cuda_lib
+from hex_gym_env_tpu_torch.ops import masked as masked_ops
+
+
+class MlpDims(NamedTuple):
+    F: int  # input features (N^2)
+    H: int  # hidden width of every layer of both towers
+    A: int  # actions (N^2)
+    n_layers: int
+    relu: bool  # else tanh
+
+
+def tower_size(d: MlpDims, out: int) -> int:
+    """Floats in one packed tower with an ``out``-wide head."""
+    return d.F * d.H + d.H + (d.n_layers - 1) * (d.H * d.H + d.H) + d.H * out + out
+
+
+def _pack_tower(params, tower: str, head: str, n_layers: int) -> torch.Tensor:
+    parts = []
+    for i in range(n_layers):
+        parts += [params[f"{tower}.{i}.weight"].transpose(-1, -2), params[f"{tower}.{i}.bias"]]
+    parts += [params[f"{head}.weight"].transpose(-1, -2), params[f"{head}.bias"]]
+    lead = parts[0].shape[:-2]
+    return torch.cat([p.reshape(*lead, -1).to(torch.float32) for p in parts], dim=-1)
+
+
+def tower_views(flat: torch.Tensor, d: MlpDims, out: int):
+    """[(W (..., in, out), b (..., out)), ...] views of packed towers."""
+    lead = flat.shape[:-1]
+    views, off, n_in = [], 0, d.F
+    for width in [d.H] * d.n_layers + [out]:
+        W = flat[..., off : off + n_in * width].reshape(*lead, n_in, width)
+        off += n_in * width
+        views.append((W, flat[..., off : off + width]))
+        off += width
+        n_in = width
+    return views
+
+
+def _act(d: MlpDims):
+    return torch.relu if d.relu else torch.tanh
+
+
+def tower_apply(views, x: torch.Tensor, d: MlpDims) -> torch.Tensor:
+    """One packed tower on a batch ``x`` (B, F), weights shared by the rows."""
+    act = _act(d)
+    h = x
+    for W, b in views[:-1]:
+        h = act(h @ W + b)
+    W, b = views[-1]
+    return h @ W + b
+
+
+def tower_apply_rows(views, idx: torch.Tensor, x: torch.Tensor, d: MlpDims) -> torch.Tensor:
+    """Stacked towers (leading member axis), row ``r`` through member ``idx[r]``."""
+    act = _act(d)
+    h = x[:, None, :]
+    idx = idx.long()
+    for W, b in views[:-1]:
+        h = act(torch.bmm(h, W[idx]) + b[idx][:, None, :])
+    W, b = views[-1]
+    return (torch.bmm(h, W[idx]) + b[idx][:, None, :])[:, 0]
+
+
+def sample_and_logp(masked: torch.Tensor, bits: Optional[torch.Tensor]):
+    """Gumbel-max action (the argmax when ``bits`` is None) and its
+    log-softmax, in the kernels' order: ``z = masked - max``,
+    ``logp = z[a] - log(sum(exp(z)))``."""
+    if bits is None:
+        action = masked_ops.argmax_first(masked)
+    else:
+        action = masked_ops.sample_masked(masked, bits)
+    z = masked - masked.max(dim=-1, keepdim=True).values
+    lse = torch.log(torch.exp(z).sum(dim=-1))
+    return action, z.gather(-1, action.long()[:, None])[:, 0] - lse
+
+
+def use_kernel(t: torch.Tensor, impl: str) -> bool:
+    """The one kernel-or-twin rule: "lax" twin; "auto" by device; "pallas"
+    the kernel, raising on a CPU tensor."""
+    if impl not in ("auto", "lax", "pallas"):
+        raise ValueError(f"impl must be one of 'auto'/'lax'/'pallas', got {impl!r}")
+    if impl == "lax":
+        return False
+    if t.is_cuda:
+        return True
+    if impl == "pallas":
+        raise ValueError("impl='pallas' pins the CUDA kernel, but the tensor lies on the CPU")
+    return False
+
+
+def _bits_or_draw(bits, generator, shape, device):
+    if bits is not None:
+        return bits
+    if generator is None:
+        raise ValueError("pass random bits or a torch.Generator")
+    return masked_ops.draw_bits(generator, shape, device)
+
+
+# ---------------------------------------------------------------------------
+# K2: agent pass
+# ---------------------------------------------------------------------------
+
+
+class AgentActResult(NamedTuple):
+    action: torch.Tensor  # (B,) int32
+    log_prob: torch.Tensor  # (B,) float32
+    value: torch.Tensor  # (B,) float32
+    masked_logits: torch.Tensor  # (B, A) float32
+
+
+def agent_forward_sample_twin(packed, d: MlpDims, obs_flat, legal, bits) -> AgentActResult:
+    """Plain PyTorch K2."""
+    pi = tower_views(packed[: tower_size(d, d.A)], d, d.A)
+    vf = tower_views(packed[tower_size(d, d.A) :], d, 1)
+    x = obs_flat.to(torch.float32)
+    masked = masked_ops.mask_logits(tower_apply(pi, x, d), legal.to(torch.bool))
+    action, logp = sample_and_logp(masked, bits)
+    return AgentActResult(action, logp, tower_apply(vf, x, d)[:, 0], masked)
+
+
+def _agent_cuda(packed, d: MlpDims, obs_flat, legal, bits, generator) -> AgentActResult:
+    B = obs_flat.shape[0]
+    chk = cuda_lib.check_cuda
+    packed = chk("packed", packed, torch.float32, (tower_size(d, d.A) + tower_size(d, 1),))
+    obs = chk("obs", obs_flat.to(torch.int8), torch.int8, (B, d.F))
+    legal = chk("legal", legal.to(torch.bool), torch.bool, (B, d.A))
+    seed = offset = 0
+    if bits is not None:
+        bits = chk("bits", bits, torch.int32, (B, d.A))
+    else:
+        seed, offset = cuda_lib.philox_seed(generator, "k2_agent")
+    dev = obs.device
+    action = torch.empty((B,), dtype=torch.int32, device=dev)
+    logp = torch.empty((B,), dtype=torch.float32, device=dev)
+    value = torch.empty((B,), dtype=torch.float32, device=dev)
+    masked = torch.empty((B, d.A), dtype=torch.float32, device=dev)
+    p = cuda_lib.ptr
+    cuda_lib.launch(
+        "k2_agent", "hex_agent",
+        p(packed), d.F, d.H, d.A, d.n_layers, int(d.relu), p(obs), p(legal), p(bits),
+        seed, offset, p(action), p(logp), p(value), p(masked), B,
+    )
+    return AgentActResult(action, logp, value, masked)
+
+
+def agent_forward_sample(
+    packed: torch.Tensor,
+    d: MlpDims,
+    obs_flat: torch.Tensor,  # (B, F) integer boards
+    legal: torch.Tensor,  # (B, A) bool
+    bits: Optional[torch.Tensor] = None,  # (B, A) int32 bit patterns
+    generator: Optional[torch.Generator] = None,
+    impl: str = "auto",
+) -> AgentActResult:
+    """One pass: agent MLP forward, masked Gumbel sample, log-prob, value."""
+    if use_kernel(obs_flat, impl):
+        return _agent_cuda(packed, d, obs_flat, legal, bits, generator)
+    bits = _bits_or_draw(bits, generator, legal.shape, obs_flat.device)
+    return agent_forward_sample_twin(packed, d, obs_flat, legal, bits)
+
+
+# ---------------------------------------------------------------------------
+# K3: opponent-bank pass
+# ---------------------------------------------------------------------------
+
+
+def bank_logits_twin(stacked, d: MlpDims, obs_flat, member_idx) -> torch.Tensor:
+    """Each row's member's action logits, (B, A)."""
+    views = tower_views(stacked, d, d.A)
+    return tower_apply_rows(views, member_idx, obs_flat.to(torch.float32), d)
+
+
+def bank_forward_sample_twin(stacked, d: MlpDims, obs_flat, legal, member_idx, bits):
+    """Plain PyTorch K3: ``(action (B,) int32, masked_logits (B, A))``."""
+    logits = bank_logits_twin(stacked, d, obs_flat, member_idx)
+    masked = masked_ops.mask_logits(logits, legal.to(torch.bool))
+    return masked_ops.sample_masked(masked, bits), masked
+
+
+def _bank_cuda(stacked, d: MlpDims, obs_flat, legal, member_idx, bits, generator):
+    B = obs_flat.shape[0]
+    chk = cuda_lib.check_cuda
+    P1 = stacked.shape[0]
+    stacked = chk("stacked", stacked, torch.float32, (P1, tower_size(d, d.A)))
+    obs = chk("obs", obs_flat.to(torch.int8), torch.int8, (B, d.F))
+    legal = chk("legal", legal.to(torch.bool), torch.bool, (B, d.A))
+    member = chk("member_idx", member_idx.to(torch.int32), torch.int32, (B,))
+    seed = offset = 0
+    if bits is not None:
+        bits = chk("bits", bits, torch.int32, (B, d.A))
+    else:
+        seed, offset = cuda_lib.philox_seed(generator, "k3_bank")
+    dev = obs.device
+    action = torch.empty((B,), dtype=torch.int32, device=dev)
+    masked = torch.empty((B, d.A), dtype=torch.float32, device=dev)
+    p = cuda_lib.ptr
+    cuda_lib.launch(
+        "k3_bank", "hex_bank",
+        p(stacked), d.F, d.H, d.A, d.n_layers, int(d.relu), p(obs), p(legal), p(member),
+        p(bits), seed, offset, p(action), p(masked), B,
+    )
+    return action, masked
+
+
+def bank_forward_sample(
+    stacked: torch.Tensor,  # (P1, S) members, best last
+    d: MlpDims,
+    obs_flat: torch.Tensor,
+    legal: torch.Tensor,
+    member_idx: torch.Tensor,  # (B,) pool slot, or P1 - 1 for the best
+    bits: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    impl: str = "auto",
+):
+    """One pass: each row's member forward + masked sample.
+
+    Returns ``(action (B,) int32, masked_logits (B, A) float32)``."""
+    if use_kernel(obs_flat, impl):
+        return _bank_cuda(stacked, d, obs_flat, legal, member_idx, bits, generator)
+    bits = _bits_or_draw(bits, generator, legal.shape, obs_flat.device)
+    return bank_forward_sample_twin(stacked, d, obs_flat, legal, member_idx, bits)
+
+
+# ---------------------------------------------------------------------------
+# Runner-facing gate
+# ---------------------------------------------------------------------------
+
+
+class PolicyOps:
+    """Shapes and packing for one MLP model, and the two passes bound to
+    one ``impl``."""
+
+    def __init__(self, model: MlpPolicy, impl: str = "auto"):
+        self.dims = MlpDims(
+            F=model.n_actions,
+            H=model.pi_layers[0],
+            A=model.n_actions,
+            n_layers=len(model.pi_layers),
+            relu=model.activation == "relu",
+        )
+        self.impl = impl
+
+    def pack_agent(self, params) -> torch.Tensor:
+        """Agent state dict -> (S_pi + S_vf,) float32."""
+        n = self.dims.n_layers
+        return torch.cat(
+            [_pack_tower(params, "pi", "action_head", n), _pack_tower(params, "vf", "value_head", n)]
+        ).contiguous()
+
+    def stack_bank(self, bank) -> torch.Tensor:
+        """Bank members + best (appended at index P) -> (P1, S) float32."""
+        n = self.dims.n_layers
+        members = _pack_tower(bank.params, "pi", "action_head", n)
+        best = _pack_tower(bank.best_params, "pi", "action_head", n)
+        return torch.cat([members, best[None]], dim=0).contiguous()
+
+    def agent_act(self, packed, obs, legal, generator=None, bits=None) -> AgentActResult:
+        obs_flat = obs.reshape(obs.shape[0], -1)
+        return agent_forward_sample(
+            packed, self.dims, obs_flat, legal, bits, generator, self.impl
+        )
+
+    def bank_act(self, stacked, use_best, opp_idx, obs, legal, generator=None, bits=None):
+        obs_flat = obs.reshape(obs.shape[0], -1)
+        idx = torch.where(use_best, stacked.shape[0] - 1, opp_idx.to(torch.int32))
+        return bank_forward_sample(
+            stacked, self.dims, obs_flat, legal, idx, bits, generator, self.impl
+        )
+
+
+def supported(model) -> bool:
+    """True for a plain MLP with equal towers of one hidden width."""
+    if not isinstance(model, MlpPolicy):
+        return False
+    return model.pi_layers == model.vf_layers and len(set(model.pi_layers)) == 1
+
+
+def resolve_policy_ops(model, cfg) -> Optional[PolicyOps]:
+    """Gate for ``SelfplayConfig.policy_impl``: None (the plain model path)
+    for "lax" or a model the kernels cannot pack under "auto"; else the
+    kernel passes ("auto": kernel on CUDA, twin on CPU; "pallas": kernel)."""
+    impl = getattr(cfg, "policy_impl", "auto")
+    if impl not in ("auto", "lax", "pallas"):
+        raise ValueError(
+            f"policy_impl must be one of 'auto'/'lax'/'pallas', got {impl!r}"
+        )
+    if impl == "lax":
+        return None
+    if not supported(model):
+        if impl == "pallas":
+            raise ValueError("policy_impl='pallas' requires a plain equal-tower MlpPolicy")
+        return None
+    return PolicyOps(model, impl)

@@ -1,0 +1,107 @@
+"""The port's boundary: it imports no JAX and nothing of the JAX package,
+it never falls back from the card to the CPU quietly, and a pinned kernel
+refuses a CPU tensor."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from hex_gym_env_tpu_torch.core import env as hex_env
+from hex_gym_env_tpu_torch.core.topology import get_topology
+from hex_gym_env_tpu_torch.models import make_policy
+from hex_gym_env_tpu_torch.ops import policy_kernel, rollout_kernel, step_kernel
+from hex_gym_env_tpu_torch.train.bank import init_bank
+from hex_gym_env_tpu_torch.train.rollout import SelfplayRunner
+from hex_gym_env_tpu_torch.utils.config import SelfplayConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "hex_gym_env_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax"}
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import sys, hex_gym_env_tpu_torch, hex_gym_env_tpu_torch.train, "
+        "hex_gym_env_tpu_torch.ops.rollout_kernel, hex_gym_env_tpu_torch.ops.step_kernel, "
+        "hex_gym_env_tpu_torch.models.convert, hex_gym_env_tpu_torch.experiments\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r "
+        "or m == 'hex_gym_env_tpu' or m.startswith('hex_gym_env_tpu.'))\n"
+        "assert not bad, bad\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+
+
+def test_no_source_names_the_jax_package():
+    pattern = re.compile(r"\bhex_gym_env_tpu\.|^\s*(import|from)\s+(jax|flax|optax|orbax)\b", re.M)
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(root, name)) as f:
+                    if pattern.search(f.read()):
+                        offenders.append(name)
+    assert not offenders
+
+
+def test_runner_without_device_needs_cuda():
+    """No device asked for means cuda; where CUDA is absent, that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    topo = get_topology(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SelfplayRunner(topo, make_policy("MLP-default", 9), SelfplayConfig(board_size=3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hex_env.initial_state(topo, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hex_env.make_ops(topo)
+
+
+def test_pinned_kernels_refuse_cpu_tensors():
+    topo = get_topology(3)
+    state = hex_env.initial_state(topo, 2, device="cpu")
+    actions = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        step_kernel.step_cuda(topo, state, actions)
+    with pytest.raises(ValueError, match="CUDA"):
+        hex_env.make_ops(topo, impl="pallas", device="cpu").step(state, actions)
+
+    model = make_policy("MLP-default", 9)
+    params = dict(model.state_dict())
+    pol = policy_kernel.PolicyOps(model, impl="pallas")
+    obs = hex_env.observe(topo, state)
+    legal = hex_env.legal_mask(topo, state)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="pallas"):
+        pol.agent_act(pol.pack_agent(params), obs, legal, g)
+    bank = init_bank(params, 2)
+    with pytest.raises(ValueError, match="pallas"):
+        pol.bank_act(pol.stack_bank(bank), torch.zeros(2, dtype=torch.bool),
+                     torch.zeros(2, dtype=torch.int32), obs, legal, g)
+
+    cfg = SelfplayConfig(board_size=3, n_envs=2, buffer_size=2, policy_impl="pallas",
+                         rollout_impl="fused")
+    runner = SelfplayRunner(topo, model, cfg, device="cpu")
+    with pytest.raises(ValueError, match="pallas"):
+        runner.run(params, bank, runner_carry_cpu(runner, bank), g, 2)
+    with pytest.raises(ValueError):
+        rollout_kernel.fused_rollout(
+            topo, runner.fused_pol, None, None, None, state, None, None, None, 1, 0.8, True)
+
+
+def runner_carry_cpu(runner, bank):
+    """A carry built without the kernels (the policy passes pinned to the
+    card would refuse the CPU)."""
+    from hex_gym_env_tpu_torch.train.rollout import RolloutCarry
+
+    B = runner.cfg.n_envs
+    return RolloutCarry(
+        env=runner.fresh_envs(),
+        agent_seat=torch.zeros(B, dtype=torch.int32),
+        use_best=torch.zeros(B, dtype=torch.bool),
+        opp_idx=torch.zeros(B, dtype=torch.int32),
+    )

@@ -12,7 +12,21 @@
    whole-rollout kernel, replays the first rollout's record through the
    plain env ops, and prints transitions/s;
 4. drives the scan path (env-step, agent and bank kernels) for 8 steps;
-5. prints the card, a JSON line of per-kernel numbers, and the final line
+5. holds the learner's kernels against their twins on the main path's data:
+   GAE (K5) exactly on a preset rollout, the PPO sweep (K6) for one grad
+   step and for the preset's whole 80-step sweep from non-zero Adam moments,
+   and for 8 steps on each other MLP tower of the preset grid (deeper,
+   wider, ReLU);
+6. drives the training main path: ``Trainer.fit`` of the preset for three
+   PPO iterations (rollout, GAE, sweep, eval + pool update each), with the
+   launches of every iteration asserted, a checkpoint after iteration 2 that
+   ``resume`` continues to bitwise the same parameters, and ``fit_fused``
+   with the same eval cadence and result; prints seconds per iteration and
+   the split by stage;
+7. trains the small config of ``tests/test_learning_curve.py`` for 24
+   iterations on the card and asserts that test's thresholds;
+8. profiles one preset iteration;
+9. prints the card, a JSON line of per-kernel numbers, and the final line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
@@ -23,8 +37,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -33,6 +49,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 
 N, B, H, POOL, T = 7, 256, 64, 30, 128
+PRESET = "7x7_MLP-default_lr-0.0003"
+# K6 vs its twin: float32 sums in another order (fmaf loops and a fixed
+# slot-order reduction vs cuBLAS); measured ~2e-7 relative after one grad
+# step and ~6e-8 abs on params after the whole preset sweep (H100 80GB HBM3, 700 W).
+# Each of p, m, v and the stats is held relative to its own largest value, so
+# an error in v (whose values are ~1e-5) cannot hide under an absolute bound.
+K6_STEP_REL = 1e-5  # one grad step: max abs error / max abs value, each of p, m, v, stats
+K6_SWEEP_REL = 1e-4  # a multi-step sweep: the same, with stats averaged over the steps
+OTHER_MLPS = ("MLP-deep", "MLP-wide-deep")  # the other presets' towers that take K6
 
 
 def fail(msg: str):
@@ -72,7 +97,45 @@ def check_actions(name, got, want, margins, tol=TOL):
     return len(diff)
 
 
+def max_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def rel_errs(got, want):
+    """Max abs error over max abs value of each of (p, m, v, stats); stats
+    are averaged over the grad steps first when there are several."""
+    pairs = list(zip(got[:3], want[:3]))
+    pairs.append((got[3].mean(0), want[3].mean(0)) if got[3].shape[0] > 1 else (got[3], want[3]))
+    return [max_err(k, t) / max(float(t.abs().max()), 1e-30) for k, t in pairs]
+
+
+def device_profile(fn):
+    """Run ``fn`` once under ``torch.profiler``; returns (wall us, device-busy
+    us, top kernels by device time, top host ops by self CPU time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_us, host_us = {}, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            device_us[ev.key] = us
+        host_us[ev.key] = ev.self_cpu_time_total
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    top_host = sorted(host_us.items(), key=lambda kv: -kv[1])[:5]
+    return wall_us, sum(device_us.values()), top, top_host
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -286,23 +349,7 @@ def main() -> int:
     print(f"[main path] rollout s {[round(x, 5) for x in times]}; {tps:.0f} transitions/s at n_envs {B}")
 
     # where one rollout's time goes: device time by kernel over the wall time
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.run(params, bank, c, gen, T)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    device_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            device_us[ev.key] = us
-    busy = sum(device_us.values())
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    wall_us, busy, top, _ = device_profile(lambda: runner.run(params, bank, c, gen, T))
     print(f"[profile] one rollout: wall {wall_us:.1f} us, device busy {busy:.1f} us "
           f"({100 * busy / wall_us:.1f}%); top kernels (us): "
           + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
@@ -333,18 +380,272 @@ def main() -> int:
         fail("the scan path produced illegal actions or non-finite values")
     print(f"[scan path] launches {scan_counts}")
 
-    # ---- 5. report -----------------------------------------------------------------------
+    # ---- 5a. K5 GAE vs its twin, on the preset rollout's data ---------------------------
+    from hex_gym_env_tpu_torch.ops import gae_kernel
+    from hex_gym_env_tpu_torch.ops import ppo_kernel as pkk
+    from hex_gym_env_tpu_torch.train import ppo
+    from hex_gym_env_tpu_torch.train.selfplay import SelfplayPPO
+    from hex_gym_env_tpu_torch.train.trainer import Trainer
+    from hex_gym_env_tpu_torch.utils.config import PPOConfig, SelfplayConfig, TrainConfig
+    from hex_gym_env_tpu_torch.utils.metrics import MetricsLogger
+
+    tcfg_ppo = get_config(PRESET).ppo
+    gae_args = (tr.reward, tr.value, tr.done, last_values, tcfg_ppo.gamma, tcfg_ppo.gae_lambda)
+    k_adv, k_ret = gae_kernel.compute_gae_cuda(*gae_args)
+    t_adv, t_ret = gae_kernel.compute_gae_twin(*gae_args)
+    torch.cuda.synchronize()
+    if not (torch.equal(k_adv, t_adv) and torch.equal(k_ret, t_ret)):
+        fail(f"K5 differs from its twin by {max(max_err(k_adv, t_adv), max_err(k_ret, t_ret))}")
+    k_ms = cuda_ms(lambda: gae_kernel.compute_gae_cuda(*gae_args), 200)
+    p_ms = cuda_ms(lambda: gae_kernel.compute_gae_twin(*gae_args), 10)
+    bnd, by = bound_ms(T * B * (4 + 4 + 1) + 4 * B + 2 * T * B * 4, 0)
+    kernels["k5_gae"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, bound_ms=bnd, bound_by=by)
+    print(f"[K5 gae] exact on {T}x{B} rollout data ({int(tr.done.sum())} dones); "
+          f"kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms")
+
+    # ---- 5b. K6 PPO sweep vs its twin at the preset's shapes ---------------------------
+    n, mbs = T * B, tcfg_ppo.minibatch_size
+    batch = ppo.PPOBatch(
+        obs=tr.obs.reshape(n, N, N), legal=tr.legal.reshape(n, A), action=tr.action.reshape(n),
+        log_prob_old=tr.log_prob.reshape(n), value_old=tr.value.reshape(n),
+        advantage=k_adv.reshape(n), ret=k_ret.reshape(n))
+    obs6, flt6 = pkk.batch_streams(batch)
+    g6 = torch.Generator().manual_seed(11)
+    mu = {k: (torch.randn(v.shape, generator=g6) * 1e-3).to(dev) for k, v in params.items()}
+    nu = {k: (torch.rand(v.shape, generator=g6) * 1e-5).to(dev) for k, v in params.items()}
+    count0 = 37
+    packed3 = (pol.pack_agent(params), pol.pack_agent(mu), pol.pack_agent(nu))
+
+    def k6_both(cfg6, idx):
+        bias = ppo.bias_corrections(count0, idx.shape[0], dev)
+        kout = pkk.sweep(pol, cfg6, *packed3, obs6, flt6, idx, bias)
+        tout = pkk.sweep(twin, cfg6, *packed3, obs6, flt6, idx, bias)
+        torch.cuda.synchronize()
+        return kout, tout, bias
+
+    step_cfg = dataclasses.replace(tcfg_ppo, n_epochs=1)
+    idx1 = torch.randperm(mbs, generator=g6).to(dev, torch.int32)[None]  # one step, n = mb
+    kout, tout, _ = k6_both(step_cfg, idx1)
+    rel = rel_errs(kout, tout)
+    if max(rel) > K6_STEP_REL:
+        fail(f"K6 one grad step: relative errors (p, m, v, stats) {rel} > {K6_STEP_REL}")
+    print(f"[K6 ppo] one grad step: relative errors p {rel[0]:.3g}, m {rel[1]:.3g}, "
+          f"v {rel[2]:.3g}, stats {rel[3]:.3g}")
+    idx = ppo.minibatch_indices(ppo.epoch_permutations(g6, n, tcfg_ppo.n_epochs), n, mbs)
+    idx = idx.to(dev).contiguous()
+    G = idx.shape[0]
+    kout, tout, bias = k6_both(tcfg_ppo, idx)
+    errs = [max_err(kv, tv) for kv, tv in zip(kout[:3], tout[:3])]
+    errs.append(max_err(kout[3].mean(0), tout[3].mean(0)))
+    rel = rel_errs(kout, tout)
+    if max(rel) > K6_SWEEP_REL:
+        fail(f"K6 {G}-step sweep: relative errors (p, m, v, mean stats) {rel} > {K6_SWEEP_REL}")
+    if not torch.equal(pkk.sweep(pol, tcfg_ppo, *packed3, obs6, flt6, idx, bias)[0], kout[0]):
+        fail("K6 is not bitwise repeatable")
+    fast = pkk.make_kernel_fast_update_fn(model, tcfg_ppo, "pallas")
+    fp, fopt, fstats = fast(params, ppo.AdamState(count0, mu, nu), batch, g6)
+    if fopt.count != count0 + G or not all(bool(torch.isfinite(t).all()) for t in
+                                           list(fp.values()) + list(fstats)):
+        fail("the fast sweep entry gave a wrong count or non-finite output")
+    k_ms = cuda_ms(lambda: pkk.sweep(pol, tcfg_ppo, *packed3, obs6, flt6, idx, bias), 3)
+    p_ms = cuda_ms(lambda: pkk.sweep(twin, tcfg_ppo, *packed3, obs6, flt6, idx, bias), 1)
+    L = d.n_layers
+    fwd = 2 * (d.F * d.H + (L - 1) * d.H * d.H + d.H * A) + 2 * (d.F * d.H + (L - 1) * d.H * d.H + d.H)
+    flops = G * mbs * (3 * fwd - 2 * 2 * d.F * d.H)  # backward ~2x forward, no input gradient
+    S = packed3[0].numel()
+    n_bytes = n * F + n * 16 + G * mbs * 4 + 6 * S * 4 + G * 2 * 4 + G * 8 * 4
+    bnd, by = bound_ms(n_bytes, flops)
+    kernels["k6_ppo"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(errs), bound_ms=bnd,
+                             bound_by=by)
+    # the per-step cost against the grid: the same 80 steps on a prefix of each minibatch
+    per_step = []
+    for mb_s in (32, 512, mbs):
+        cfg_s = dataclasses.replace(tcfg_ppo, minibatch_size=mb_s)
+        idx_s = idx[:, :mb_s].contiguous()
+        grid_s = cuda_lib.ppo_plan(d.F, d.H, d.A, d.n_layers, mb_s)[0]
+        ms_s = cuda_ms(lambda: pkk.sweep(pol, cfg_s, *packed3, obs6, flt6, idx_s, bias), 3)
+        per_step.append(f"{1000 * ms_s / G:.1f} us at mb {mb_s} ({grid_s} CTAs)")
+    print(f"[K6 ppo] {G}-step sweep from count {count0}: abs errors p {errs[0]:.3g}, "
+          f"m {errs[1]:.3g}, v {errs[2]:.3g}, mean stats {errs[3]:.3g}; relative errors "
+          + ", ".join(f"{x:.3g}" for x in rel) + f"; bitwise repeatable; "
+          f"fast entry count {fopt.count}; kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms, "
+          f"{flops / 1e9:.2f} GFLOP")
+    print("[K6 ppo] per grad step: " + ", ".join(per_step))
+
+    # ---- 5c. K6 on the other MLP towers of the preset grid (deeper, wider, ReLU) -------
+    for fam in OTHER_MLPS:
+        m_f = make_policy(fam, A, generator=g6)
+        p_f = {k: v.detach().to(dev) for k, v in m_f.state_dict().items()}
+        mu_f = {k: (torch.randn(v.shape, generator=g6) * 1e-3).to(dev) for k, v in p_f.items()}
+        nu_f = {k: (torch.rand(v.shape, generator=g6) * 1e-5).to(dev) for k, v in p_f.items()}
+        pol_f, twin_f = pk.PolicyOps(m_f, "pallas"), pk.PolicyOps(m_f, "lax")
+        packed_f = (pol_f.pack_agent(p_f), pol_f.pack_agent(mu_f), pol_f.pack_agent(nu_f))
+        idx_f = idx[:8].contiguous()
+        bias_f = ppo.bias_corrections(count0, 8, dev)
+        kout = pkk.sweep(pol_f, tcfg_ppo, *packed_f, obs6, flt6, idx_f, bias_f)
+        tout = pkk.sweep(twin_f, tcfg_ppo, *packed_f, obs6, flt6, idx_f, bias_f)
+        torch.cuda.synchronize()
+        rel = rel_errs(kout, tout)
+        if max(rel) > K6_SWEEP_REL:
+            fail(f"K6 {fam} 8-step sweep: relative errors (p, m, v, mean stats) {rel} "
+                 f"> {K6_SWEEP_REL}")
+        d_f = pol_f.dims
+        plan = cuda_lib.ppo_plan(d_f.F, d_f.H, d_f.A, d_f.n_layers, mbs)
+        f_ms = cuda_ms(lambda: pkk.sweep(pol_f, tcfg_ppo, *packed_f, obs6, flt6, idx_f, bias_f), 3)
+        print(f"[K6 ppo] {fam} (H {d_f.H}, {d_f.n_layers} layers, relu {d_f.relu}, plan {plan}): "
+              f"8 steps at mb {mbs}, relative errors " + ", ".join(f"{x:.3g}" for x in rel)
+              + f"; kernel {f_ms:.3f} ms")
+
+    # ---- 6. main path, training: Trainer.fit of the preset -----------------------------
+    per_iter = B * T
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    tcfg = get_config(PRESET, total_timesteps=3 * per_iter, checkpoint_every=2 * per_iter,
+                      log_dir=os.path.join(work, "log"), model_dir=os.path.join(work, "models"))
+    trainer = Trainer(tcfg, device=dev)
+    algo = trainer.algo
+    if (algo.runner.fused_pol is None or algo.evaluator.fused_pol is None
+            or not algo.update_fn.__qualname__.startswith("make_kernel_update_fn")):
+        fail("the preset's trainer does not resolve to the rollout and sweep kernels")
+    stage_events = {"rollout": [], "gae": [], "sweep": [], "eval + pool update": []}
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            stage_events[stage].append((start, end))
+            return out
+        return run
+
+    algo.runner.run = timed("rollout", algo.runner.run)
+    algo.gae_fn = timed("gae", algo.gae_fn)
+    algo.update_fn = timed("sweep", algo.update_fn)
+    algo.evaluator.eval_and_update = timed("eval + pool update", algo.evaluator.eval_and_update)
+    marks = []  # (host time, launch counts) at each iteration's start
+    train_step = algo.train_step
+
+    def marked_train_step(state):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), dict(cuda_lib.launches)))
+        return train_step(state)
+
+    algo.train_step = marked_train_step
+    cuda_lib.reset_launches()
+    state_a = trainer.fit()
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), dict(cuda_lib.launches)))
+    train_counts = dict(cuda_lib.launches)
+    for i in range(3):
+        got = {k: marks[i + 1][1][k] - marks[i][1][k] for k in cuda_lib.KERNELS}
+        if (got["k4_rollout"], got["k5_gae"], got["k6_ppo"]) != (2, 1, 1) or got["k1_step"] < 1:
+            fail(f"iteration {i + 1} launched {got}: expected K4 2, K5 1, K6 1, K1 >= 1")
+    with open(os.path.join(tcfg.log_dir, tcfg.model_name, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    eval_steps = [r["step"] for r in recs if "eval/mean_reward" in r]
+    if eval_steps != [per_iter, 2 * per_iter, 3 * per_iter]:
+        fail(f"eval did not fire every iteration: {eval_steps}")
+    if not all(np.isfinite(v) for r in recs for v in r.values()):
+        fail("non-finite logged metrics")
+    if not all(bool(torch.isfinite(v).all()) for v in state_a.params.values()):
+        fail("non-finite parameters after training")
+    iter_s = [marks[i + 1][0] - marks[i][0] for i in range(3)]
+    stage_ms = {k: [round(s.elapsed_time(e), 3) for s, e in v] for k, v in stage_events.items()}
+    print(f"[train] 3 iterations of {per_iter} transitions: launches {train_counts}; "
+          f"eval at steps {eval_steps}")
+    print(f"[train] s per iteration {[round(x, 4) for x in iter_s]}; "
+          f"{per_iter / (sum(iter_s[1:]) / 2):.0f} transitions/s (iterations 2-3)")
+    print("[train] stage ms of iterations 1-3 (CUDA events): "
+          + "; ".join(f"{k} {v}" for k, v in stage_ms.items()))
+    last = recs[-2]
+    print("[train] iteration 3: " + ", ".join(
+        f"{k} {last[k]:.4g}" for k in ("rollout/ep_rew_mean", "train/policy_loss",
+                                        "train/value_loss", "train/entropy", "eval/score")))
+
+    # resume from the checkpoint after iteration 2 and run iteration 3 again
+    if trainer._ckpt_mgr().latest_step() != 2 * per_iter:
+        fail("no checkpoint after iteration 2")
+    trainer_r = Trainer(tcfg, logger=MetricsLogger(tcfg.log_dir, "resumed"), device=dev)
+    state_r = trainer_r.resume()
+    state_r = trainer_r.fit(state_r)
+    if not all(torch.equal(state_r.params[k], state_a.params[k]) for k in state_a.params):
+        fail("the resumed iteration 3 differs from the uninterrupted one")
+    # fit_fused: three iterations per superstep, the same cadence and result
+    tcfg_f = dataclasses.replace(tcfg, iters_per_dispatch=3, model_name="fused",
+                                 checkpoint_every=10 * per_iter)
+    trainer_f = Trainer(tcfg_f, device=dev)
+    state_f = trainer_f.fit()
+    with open(os.path.join(tcfg.log_dir, "fused", "metrics.jsonl")) as f:
+        fused_steps = [json.loads(line)["step"] for line in f if "eval/mean_reward" in line]
+    if fused_steps != eval_steps:
+        fail(f"fit_fused evals at {fused_steps}, fit at {eval_steps}")
+    if not all(torch.equal(state_f.params[k], state_a.params[k]) for k in state_a.params):
+        fail("fit_fused ends on other parameters than fit")
+    print("[train] resume from iteration 2 -> iteration 3 params bitwise equal; "
+          "fit_fused: same eval cadence, bitwise equal params")
+
+    # ---- 7. learning on the card (tests/test_learning_curve.py's config) --------------
+    lcfg = TrainConfig(ppo=PPOConfig(n_steps=32, minibatch_size=512, n_epochs=4),
+                       selfplay=SelfplayConfig(board_size=4, n_envs=64, buffer_size=4))
+    lalgo = SelfplayPPO(lcfg, device=dev)
+    lstate = lalgo.init_state(0)
+    cuda_lib.reset_launches()
+    rews = []
+    for _ in range(24):  # no eval: the pool stays all-zeros == random
+        lstate, m = lalgo.train_step(lstate)
+        rews.append(float(m.mean_episode_reward))
+    lcounts = {k: cuda_lib.launches[k] for k in ("k4_rollout", "k5_gae", "k6_ppo")}
+    early, late = float(np.mean(rews[:3])), float(np.mean(rews[-5:]))
+    print(f"[learning] curve {[round(r, 3) for r in rews]}; early {early:.3f}, late {late:.3f}; "
+          f"launches {lcounts}")
+    if set(lcounts.values()) != {24}:
+        fail(f"the learning run did not go through K4/K5/K6 every iteration: {lcounts}")
+    if not (np.isfinite(rews).all() and abs(early) < 0.25 and late > 0.15 and late - early > 0.2):
+        fail("no learning on the card")
+
+    # ---- 8. where one preset iteration's time goes ---------------------------------------
+    algo_f = trainer_f.algo
+
+    def iterations(state, k):
+        for _ in range(k):
+            state, _ = algo_f.train_step(state)
+            state, _ = algo_f.eval_step(state)
+        return state
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iterations(state_f, 3)
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t0) / 3
+    print(f"[train] steady state, 3 more iterations of train_step + eval_step: {steady:.4f} s "
+          f"per iteration, {per_iter / steady:.0f} transitions/s")
+    wall_us, busy, top, top_host = device_profile(lambda: iterations(state_f, 1))
+    print(f"[profile] one preset iteration (train + eval): wall {wall_us:.1f} us, device busy "
+          f"{busy:.1f} us ({100 * busy / wall_us:.1f}%); top kernels (us): "
+          + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
+    print("[profile] top host ops by self CPU time (us): "
+          + "; ".join(f"{k[:40]} {v:.1f}" for k, v in top_host))
+    shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 9. report -----------------------------------------------------------------------
+    rollout_src = "hex_gym_env_tpu_torch/csrc/hex_kernels.cu"
+    learner_src = "hex_gym_env_tpu_torch/csrc/learner_kernels.cu"
     meta = {
-        "k1_step": ("hex_gym_env_tpu/ops/pallas_step.py:38", scan_counts["k1_step"]),
-        "k2_agent": ("hex_gym_env_tpu/ops/pallas_policy.py:122", scan_counts["k2_agent"]),
-        "k3_bank": ("hex_gym_env_tpu/ops/pallas_policy.py:268", scan_counts["k3_bank"]),
-        "k4_rollout": ("hex_gym_env_tpu/ops/pallas_rollout.py:163", main_counts["k4_rollout"]),
+        "k1_step": ("hex_gym_env_tpu/ops/pallas_step.py:38", scan_counts["k1_step"], rollout_src),
+        "k2_agent": ("hex_gym_env_tpu/ops/pallas_policy.py:122", scan_counts["k2_agent"],
+                     rollout_src),
+        "k3_bank": ("hex_gym_env_tpu/ops/pallas_policy.py:268", scan_counts["k3_bank"],
+                    rollout_src),
+        "k4_rollout": ("hex_gym_env_tpu/ops/pallas_rollout.py:163", main_counts["k4_rollout"],
+                       rollout_src),
+        "k5_gae": ("hex_gym_env_tpu/ops/pallas_gae.py:32", train_counts["k5_gae"], learner_src),
+        "k6_ppo": ("hex_gym_env_tpu/ops/pallas_ppo.py:119", train_counts["k6_ppo"], learner_src),
     }
     rows = []
-    for name, (replaces, launches) in meta.items():
+    for name, (replaces, launches, source) in meta.items():
         k = kernels[name]
         rows.append({
-            "name": name, "route": "cuda", "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,

@@ -1,4 +1,5 @@
-// Device functions shared by the four kernels of hex_kernels.cu: move
+// Device functions shared by the kernels of hex_kernels.cu and
+// learner_kernels.cu (every one inline: both files include this header): move
 // decoding, the flat-label union with its win test, the MLP towers, and the
 // masked Gumbel-max sample with its log-softmax.
 //
@@ -153,8 +154,8 @@ __device__ __forceinline__ float dense_unit(const float* W, const float* b, cons
 // outputs) side by side on input x (F floats).  h0/h1 are 2H-float scratch
 // buffers; y receives out0 (+ out1) outputs.  Weights may lie in shared or
 // global memory (generic pointers).  Ends with __syncthreads().
-__device__ void mlp_towers(const Mlp& m, const float* t0, int out0, const float* t1, int out1,
-                           const float* x, float* h0, float* h1, float* y) {
+__device__ inline void mlp_towers(const Mlp& m, const float* t0, int out0, const float* t1,
+                                  int out1, const float* x, float* h0, float* h1, float* y) {
   const int ntow = t1 != nullptr ? 2 : 1;
   const int H = m.H;
   const float* hin = x;
@@ -192,8 +193,9 @@ __device__ void mlp_towers(const Mlp& m, const float* t0, int out0, const float*
 // action on every thread and its log-softmax in *logp.  Ends with a sync.
 // ---------------------------------------------------------------------------
 
-__device__ int masked_sample(float* logits, const uint8_t* legal, int A, bool noise,
-                             const Bits& bits, float* masked_out, float* logp, Scratch& s) {
+__device__ inline int masked_sample(float* logits, const uint8_t* legal, int A, bool noise,
+                                    const Bits& bits, float* masked_out, float* logp,
+                                    Scratch& s) {
   // (-FLT_MAX, INT_MAX) loses to every real entry, masked ones included
   float bv = -FLT_MAX, mx = -FLT_MAX;
   int bi = INT_MAX;
@@ -232,8 +234,8 @@ struct Board {
   int n, F, L;
 };
 
-__device__ bool place_stone(const Board& g, uint8_t* st0, uint8_t* st1, int* lab, int s, int c,
-                            bool act) {
+__device__ inline bool place_stone(const Board& g, uint8_t* st0, uint8_t* st1, int* lab, int s,
+                                   int c, bool act) {
   if (!act) return false;
   const int n = g.n;
   const uint8_t* mine = s == 0 ? st0 : st1;

@@ -12,8 +12,9 @@
 // Randomness: each kernel takes an optional bits array in the JAX package's
 // interpret-mode layout and maps bits to samples exactly as the JAX kernels
 // do.  Without it, every thread draws from its own Philox stream
-// (curand_init(seed, row * blockDim + thread, offset)); the wrapper gives a
-// fresh seed and a per-launch offset, so no two launches share a stream.
+// (curand_init(seed, row * blockDim + thread, 0)); the wrapper draws a
+// fresh seed per launch from the caller's generator, so no two
+// launches share a stream and a restored generator replays the streams.
 // That is this port's stream deviation, as the TPU hardware PRNG is the JAX
 // package's.
 
@@ -28,11 +29,11 @@ using hex::Scratch;
 
 namespace {
 
-__device__ __forceinline__ void philox_init(curandStatePhilox4_32_10_t* st, unsigned long long seed,
-                                            unsigned long long offset) {
+__device__ __forceinline__ void philox_init(curandStatePhilox4_32_10_t* st,
+                                            unsigned long long seed) {
   const unsigned long long sub =
       static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  curand_init(seed, sub, offset, st);
+  curand_init(seed, sub, 0, st);
 }
 
 // ===========================================================================
@@ -125,7 +126,7 @@ struct AgentArgs {
   const int8_t* obs;     // (B, F)
   const uint8_t* legal;  // (B, A)
   const uint32_t* bits;  // (B, A) or null
-  unsigned long long seed, offset;
+  unsigned long long seed;
   int* o_action;
   float* o_logp;
   float* o_value;
@@ -149,7 +150,7 @@ __global__ void agent_kernel(AgentArgs a) {
   hex::mlp_towers(m, pi, m.A, vf, 1, x, h0, h1, y);
 
   curandStatePhilox4_32_10_t st;
-  if (a.bits == nullptr) philox_init(&st, a.seed, a.offset);
+  if (a.bits == nullptr) philox_init(&st, a.seed);
   const Bits bits{a.bits != nullptr ? a.bits + b * m.A : nullptr, &st};
   float logp;
   const int action = hex::masked_sample(y, a.legal + b * m.A, m.A, true, bits,
@@ -179,7 +180,7 @@ struct BankArgs {
   const uint8_t* legal;
   const int* member;  // (B,) member index
   const uint32_t* bits;
-  unsigned long long seed, offset;
+  unsigned long long seed;
   int* o_action;
   float* o_masked;
 };
@@ -200,7 +201,7 @@ __global__ void bank_kernel(BankArgs a) {
   hex::mlp_towers(m, w, m.A, nullptr, 0, x, h0, h1, y);
 
   curandStatePhilox4_32_10_t st;
-  if (a.bits == nullptr) philox_init(&st, a.seed, a.offset);
+  if (a.bits == nullptr) philox_init(&st, a.seed);
   const Bits bits{a.bits != nullptr ? a.bits + b * m.A : nullptr, &st};
   const int action = hex::masked_sample(y, a.legal + b * m.A, m.A, true, bits,
                                         a.o_masked + b * m.A, nullptr, red);
@@ -252,7 +253,7 @@ struct RolloutArgs {
   const uint32_t* opp_bits;
   const uint32_t* first_bits;
   const uint32_t* reset_bits;
-  unsigned long long seed, offset;
+  unsigned long long seed;
   // record
   int8_t* o_obs;  // (T, B, F)
   int* o_ints;    // (T, B, 8)
@@ -326,7 +327,7 @@ __global__ void rollout_kernel(RolloutArgs a) {
 
   const bool injected = a.agent_bits != nullptr;
   curandStatePhilox4_32_10_t st;
-  if (!injected) philox_init(&st, a.seed, a.offset);
+  if (!injected) philox_init(&st, a.seed);
   const float* agent_pi = aw;
   const float* agent_vf = aw + member_size;
   __syncthreads();
@@ -482,11 +483,11 @@ int hex_step(const void* stones, const void* labels, const void* to_move, const 
 
 int hex_agent(const void* params, int F, int H, int A, int n_layers, int relu, const void* obs,
               const void* legal, const void* bits, unsigned long long seed,
-              unsigned long long offset, void* o_action, void* o_logp, void* o_value,
-              void* o_masked, int B, void* stream) {
+              void* o_action, void* o_logp, void* o_value, void* o_masked, int B,
+              void* stream) {
   AgentArgs a{static_cast<const float*>(params), Mlp{F, H, A, n_layers, relu},
               static_cast<const int8_t*>(obs), static_cast<const uint8_t*>(legal),
-              static_cast<const uint32_t*>(bits), seed, offset,
+              static_cast<const uint32_t*>(bits), seed,
               static_cast<int*>(o_action), static_cast<float*>(o_logp),
               static_cast<float*>(o_value), static_cast<float*>(o_masked)};
   const int smem = mlp_smem_bytes(a.m);
@@ -498,10 +499,10 @@ int hex_agent(const void* params, int F, int H, int A, int n_layers, int relu, c
 
 int hex_bank(const void* bank, int F, int H, int A, int n_layers, int relu, const void* obs,
              const void* legal, const void* member, const void* bits, unsigned long long seed,
-             unsigned long long offset, void* o_action, void* o_masked, int B, void* stream) {
+             void* o_action, void* o_masked, int B, void* stream) {
   BankArgs a{static_cast<const float*>(bank), Mlp{F, H, A, n_layers, relu},
              static_cast<const int8_t*>(obs), static_cast<const uint8_t*>(legal),
-             static_cast<const int*>(member), static_cast<const uint32_t*>(bits), seed, offset,
+             static_cast<const int*>(member), static_cast<const uint32_t*>(bits), seed,
              static_cast<int*>(o_action), static_cast<float*>(o_masked)};
   const int smem = mlp_smem_bytes(a.m);
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(bank_kernel), smem);
@@ -515,7 +516,7 @@ int hex_rollout(const void* agent, const void* bank, const void* first, int F, i
                 const void* to_move, const void* done, const void* empty, const void* moves,
                 const void* seat, const void* use_best, const void* opp_idx,
                 const void* agent_bits, const void* opp_bits, const void* first_bits,
-                const void* reset_bits, unsigned long long seed, unsigned long long offset,
+                const void* reset_bits, unsigned long long seed,
                 void* o_obs, void* o_ints, void* o_flts, void* o_stones, void* o_labels,
                 void* o_to_move, void* o_done, void* o_empty, void* o_moves, void* o_seat,
                 void* o_use_best, void* o_opp_idx, int B, int n, int L, int T, float best_prob,
@@ -540,7 +541,6 @@ int hex_rollout(const void* agent, const void* bank, const void* first, int F, i
   a.first_bits = static_cast<const uint32_t*>(first_bits);
   a.reset_bits = static_cast<const uint32_t*>(reset_bits);
   a.seed = seed;
-  a.offset = offset;
   a.o_obs = static_cast<int8_t*>(o_obs);
   a.o_ints = static_cast<int*>(o_ints);
   a.o_flts = static_cast<float*>(o_flts);

@@ -1,4 +1,4 @@
-"""Carry weights and state across from the JAX package.
+"""Carry weights, optimizer and env state across from the JAX package.
 
 The JAX package keeps MLP parameters as flax trees,
 ``{"params": {"pi_0": {"kernel", "bias"}, ..., "action_head": ...,
@@ -67,6 +67,22 @@ def flax_to_torch(params_np: Mapping, activation: str = "tanh") -> MlpPolicy:
     model = MlpPolicy(n_actions, pi, vf, activation)
     model.load_state_dict(flax_state_dict(tree))
     return model
+
+
+def optax_adam_to_torch(opt_state_np):
+    """The JAX package's optimizer state ``(clip_state, (ScaleByAdamState,
+    lr_state))`` (``optax.chain(clip_by_global_norm, adam)``), with numpy
+    leaves, as the port's ``train/ppo.AdamState``: the step count and the
+    two moments as ``MlpPolicy`` state dicts, so both packages can start a
+    sweep from the same moments and count."""
+    from hex_gym_env_tpu_torch.train.ppo import AdamState
+
+    adam = opt_state_np[1][0]
+    return AdamState(
+        count=int(np.asarray(adam.count)),
+        mu=flax_state_dict(adam.mu),
+        nu=flax_state_dict(adam.nu),
+    )
 
 
 _STATE_DTYPES = {

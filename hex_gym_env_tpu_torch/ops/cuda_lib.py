@@ -1,12 +1,15 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
-The kernels live in ``csrc/hex_kernels.cu`` (with the shared device code in
-``csrc/hex_common.cuh``) behind a plain C interface.  On first use the
-source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``_build/`` beside this package (listed in ``.gitignore``),
-keyed by a hash of the sources, and loaded with ``ctypes``.  Every pointer
-and the stream are passed as ``c_void_p``; every C entry returns the
-``cudaGetLastError()`` of its launch, and a non-zero code raises here.
+The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4) and
+``csrc/learner_kernels.cu`` (the learner's K5-K6), with the shared device
+code in ``csrc/hex_common.cuh``, behind a plain C interface.  On first use
+each ``.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once
+in parallel, and linked into one shared library under ``_build/`` beside
+this package (listed in ``.gitignore``), keyed by a hash of the sources, and
+loaded with ``ctypes``.  Every pointer and the stream are passed as
+``c_void_p``; every C entry returns the ``cudaGetLastError()`` of its launch
+(K6's is a cooperative launch, ``cudaLaunchCooperativeKernel``, whose own
+error code comes back the same way), and a non-zero code raises here.
 
 No fast-math: ``tanhf``, ``logf`` and ``expf`` must be the full-precision
 library versions, or the kernels drift from their PyTorch twins.
@@ -30,13 +33,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("hex_kernels.cu", "hex_common.cuh")
+UNITS = ("hex_kernels.cu", "learner_kernels.cu")  # compiled one nvcc each
+SOURCES = UNITS + ("hex_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-KERNELS = ("k1_step", "k2_agent", "k3_bank", "k4_rollout")
+KERNELS = ("k1_step", "k2_agent", "k3_bank", "k4_rollout", "k5_gae", "k6_ppo")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 P = ctypes.c_void_p
@@ -44,19 +49,27 @@ I = ctypes.c_int
 U64 = ctypes.c_uint64
 F32 = ctypes.c_float
 
-# argument types of each C entry, in order (see csrc/hex_kernels.cu)
+# argument types of each C entry, in order (see csrc/*.cu)
 _ARGTYPES = {
     "hex_step": [P] * 9 + [P] * 8 + [I, I, I, P],
-    "hex_agent": [P, I, I, I, I, I, P, P, P, U64, U64, P, P, P, P, I, P],
-    "hex_bank": [P, I, I, I, I, I, P, P, P, P, U64, U64, P, P, I, P],
+    "hex_agent": [P, I, I, I, I, I, P, P, P, U64, P, P, P, P, I, P],
+    "hex_bank": [P, I, I, I, I, I, P, P, P, P, U64, P, P, I, P],
     "hex_rollout": (
         [P, P, P, I, I, I, I, I, I]  # weights + dims
         + [P] * 9  # state in
-        + [P, P, P, P, U64, U64]  # bits + philox
+        + [P, P, P, P, U64]  # bits + philox seed
         + [P, P, P]  # obs / ints / flts
         + [P] * 9  # state out
         + [I, I, I, I, F32, I, I, P]
     ),
+    "hex_gae": [P] * 6 + [I, I, F32, F32, P],
+    "hex_ppo": (
+        [P] * 13  # obs, flt, idx, order, bias, p, m, v, stats + 4 scratch
+        + [I] * 7  # F, H, A, n_layers, relu, mb, G
+        + [F32] * 8  # lr, clip, clip_lo, clip_hi, ent_scale, vf_scale, max_norm, eps
+        + [I, I, I, P]  # grid, R, smem, stream
+    ),
+    "hex_ppo_plan": [I, I, I, I, I, P],  # launches nothing: no stream
 }
 
 _lock = threading.Lock()
@@ -82,7 +95,7 @@ def _source_hash() -> str:
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -91,18 +104,40 @@ def build(verbose: bool = False) -> Path:
     path.  ``verbose`` adds ``-Xptxas -v`` and prints the compiler's
     register/shared-memory report."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libhexkernels_{_source_hash()}.so"
+    key = _source_hash()
+    out = BUILD_DIR / f"libhexkernels_{key}.so"
     if out.exists() and not verbose:
         return out
+    nvcc = _nvcc()
+    tag = f"{key}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(u).stem}_{tag}.o" for u in UNITS]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *ptxas, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / unit)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for unit, obj in zip(UNITS, objs)
+    ]
+    errors = []
+    for unit, proc in zip(UNITS, compiles):
+        err = proc.communicate()[1]
+        if verbose:
+            print(err, end="")
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {unit} ({proc.returncode}):\n{err}")
+    if errors:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        raise RuntimeError("\n".join(errors))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "hex_kernels.cu")]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(
+        [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)], capture_output=True, text=True
+    )
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -135,21 +170,34 @@ def launch(kernel: str, entry: str, *args) -> None:
     launches[kernel] += 1
 
 
+def ppo_plan(F: int, H: int, A: int, n_layers: int, mb: int) -> tuple[int, int, int]:
+    """K6's launch shape on the current device: ``(grid, rows per chunk,
+    shared-memory bytes)``; grid is at most the CTAs that fit on the card
+    at once, as a cooperative launch needs.  Raises on an error code."""
+    handle = lib()
+    plan = (ctypes.c_int * 3)()
+    code = handle.hex_ppo_plan(F, H, A, n_layers, mb, ctypes.addressof(plan))
+    if code != 0:
+        raise RuntimeError(f"hex_ppo_plan failed: {handle.hex_error_string(code).decode()}")
+    return plan[0], plan[1], plan[2]
+
+
 def ptr(t: torch.Tensor | None):
     """A tensor's device address for ``c_void_p`` (None for a null pointer)."""
     return None if t is None else t.data_ptr()
 
 
-def philox_seed(generator: torch.Generator | None, kernel: str) -> tuple[int, int]:
-    """Seed and offset of one launch's Philox streams: a fresh 63-bit seed
-    from ``generator`` and an offset that advances 2**32 draws per launch of
-    ``kernel``, so no two launches share a stream."""
+def philox_seed(generator: torch.Generator | None) -> int:
+    """A fresh 63-bit seed for one launch's Philox streams, drawn from
+    ``generator``: launches never share a stream (each thread takes its own
+    subsequence of its launch's seed), and the streams are a function of the
+    generator's state alone, so a run restored from a checkpoint draws what
+    the uninterrupted run drew."""
     if generator is None:
         raise ValueError("a torch.Generator is needed to seed the kernel's Philox streams")
-    seed = int(
+    return int(
         torch.randint(0, 2**63 - 1, (1,), generator=generator, device=generator.device).item()
     )
-    return seed, launches[kernel] << 32
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> torch.Tensor:

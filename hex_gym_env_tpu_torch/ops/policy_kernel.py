@@ -63,6 +63,14 @@ def _pack_tower(params, tower: str, head: str, n_layers: int) -> torch.Tensor:
     return torch.cat([p.reshape(*lead, -1).to(torch.float32) for p in parts], dim=-1)
 
 
+def _unpack_tower(flat: torch.Tensor, d: MlpDims, out: int, tower: str, head: str, sd: dict):
+    views = tower_views(flat, d, out)
+    names = [f"{tower}.{i}" for i in range(d.n_layers)] + [head]
+    for name, (W, b) in zip(names, views):
+        sd[f"{name}.weight"] = W.transpose(-1, -2).contiguous()
+        sd[f"{name}.bias"] = b.contiguous()
+
+
 def tower_views(flat: torch.Tensor, d: MlpDims, out: int):
     """[(W (..., in, out), b (..., out)), ...] views of packed towers."""
     lead = flat.shape[:-1]
@@ -164,11 +172,11 @@ def _agent_cuda(packed, d: MlpDims, obs_flat, legal, bits, generator) -> AgentAc
     packed = chk("packed", packed, torch.float32, (tower_size(d, d.A) + tower_size(d, 1),))
     obs = chk("obs", obs_flat.to(torch.int8), torch.int8, (B, d.F))
     legal = chk("legal", legal.to(torch.bool), torch.bool, (B, d.A))
-    seed = offset = 0
+    seed = 0
     if bits is not None:
         bits = chk("bits", bits, torch.int32, (B, d.A))
     else:
-        seed, offset = cuda_lib.philox_seed(generator, "k2_agent")
+        seed = cuda_lib.philox_seed(generator)
     dev = obs.device
     action = torch.empty((B,), dtype=torch.int32, device=dev)
     logp = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -178,7 +186,7 @@ def _agent_cuda(packed, d: MlpDims, obs_flat, legal, bits, generator) -> AgentAc
     cuda_lib.launch(
         "k2_agent", "hex_agent",
         p(packed), d.F, d.H, d.A, d.n_layers, int(d.relu), p(obs), p(legal), p(bits),
-        seed, offset, p(action), p(logp), p(value), p(masked), B,
+        seed, p(action), p(logp), p(value), p(masked), B,
     )
     return AgentActResult(action, logp, value, masked)
 
@@ -225,11 +233,11 @@ def _bank_cuda(stacked, d: MlpDims, obs_flat, legal, member_idx, bits, generator
     obs = chk("obs", obs_flat.to(torch.int8), torch.int8, (B, d.F))
     legal = chk("legal", legal.to(torch.bool), torch.bool, (B, d.A))
     member = chk("member_idx", member_idx.to(torch.int32), torch.int32, (B,))
-    seed = offset = 0
+    seed = 0
     if bits is not None:
         bits = chk("bits", bits, torch.int32, (B, d.A))
     else:
-        seed, offset = cuda_lib.philox_seed(generator, "k3_bank")
+        seed = cuda_lib.philox_seed(generator)
     dev = obs.device
     action = torch.empty((B,), dtype=torch.int32, device=dev)
     masked = torch.empty((B, d.A), dtype=torch.float32, device=dev)
@@ -237,7 +245,7 @@ def _bank_cuda(stacked, d: MlpDims, obs_flat, legal, member_idx, bits, generator
     cuda_lib.launch(
         "k3_bank", "hex_bank",
         p(stacked), d.F, d.H, d.A, d.n_layers, int(d.relu), p(obs), p(legal), p(member),
-        p(bits), seed, offset, p(action), p(masked), B,
+        p(bits), seed, p(action), p(masked), B,
     )
     return action, masked
 
@@ -286,6 +294,14 @@ class PolicyOps:
         return torch.cat(
             [_pack_tower(params, "pi", "action_head", n), _pack_tower(params, "vf", "value_head", n)]
         ).contiguous()
+
+    def unpack_agent(self, packed: torch.Tensor) -> dict:
+        """The inverse of ``pack_agent``: (S_pi + S_vf,) -> state dict."""
+        d, sd = self.dims, {}
+        split = tower_size(d, d.A)
+        _unpack_tower(packed[:split], d, d.A, "pi", "action_head", sd)
+        _unpack_tower(packed[split:], d, 1, "vf", "value_head", sd)
+        return sd
 
     def stack_bank(self, bank) -> torch.Tensor:
         """Bank members + best (appended at index P) -> (P1, S) float32."""

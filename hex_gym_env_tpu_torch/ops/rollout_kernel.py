@@ -265,14 +265,14 @@ def _rollout_cuda(
     seat = chk("agent_seat", agent_seat.to(torch.int32), torch.int32, (B,))
     ub = chk("use_best", use_best.to(torch.bool), torch.bool, (B,))
     oi = chk("opp_idx", opp_idx.to(torch.int32), torch.int32, (B,))
-    seed = offset = 0
+    seed = 0
     if bits is not None:
         widths = (A, A, A, RESET_LANES)
         bits = [chk(f"bits[{k}]", b, torch.int32, (n_steps, B, w))
                 for k, (b, w) in enumerate(zip(bits, widths))]
     else:
         bits = [None] * 4
-        seed, offset = cuda_lib.philox_seed(generator, "k4_rollout")
+        seed = cuda_lib.philox_seed(generator)
 
     dev = stones.device
     obs = torch.empty((n_steps, B, F), dtype=torch.int8, device=dev)
@@ -293,7 +293,7 @@ def _rollout_cuda(
         "k4_rollout", "hex_rollout",
         p(agent), p(bank), p(first), d.F, d.H, A, d.n_layers, int(d.relu), P1,
         p(stones), p(labels), p(to_move), p(done), p(empty), p(moves), p(seat), p(ub), p(oi),
-        *[p(b) for b in bits], seed, offset,
+        *[p(b) for b in bits], seed,
         p(obs), p(ints), p(flts),
         p(o.stones), p(o.labels), p(o.to_move), p(o.done), p(o.empty), p(o.move_count),
         p(o_seat), p(o_ub), p(o_oi),

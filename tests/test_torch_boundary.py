@@ -27,6 +27,9 @@ def test_package_imports_no_jax():
     code = (
         "import sys, hex_gym_env_tpu_torch, hex_gym_env_tpu_torch.train, "
         "hex_gym_env_tpu_torch.ops.rollout_kernel, hex_gym_env_tpu_torch.ops.step_kernel, "
+        "hex_gym_env_tpu_torch.ops.gae_kernel, hex_gym_env_tpu_torch.ops.ppo_kernel, "
+        "hex_gym_env_tpu_torch.train.trainer, hex_gym_env_tpu_torch.utils.checkpoint, "
+        "hex_gym_env_tpu_torch.utils.metrics, hex_gym_env_tpu_torch.parallel.bootstrap, "
         "hex_gym_env_tpu_torch.models.convert, hex_gym_env_tpu_torch.experiments\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r "
         "or m == 'hex_gym_env_tpu' or m.startswith('hex_gym_env_tpu.'))\n"
@@ -59,6 +62,27 @@ def test_runner_without_device_needs_cuda():
         hex_env.initial_state(topo, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         hex_env.make_ops(topo)
+
+
+def test_learner_without_device_needs_cuda():
+    """``SelfplayPPO`` and ``Trainer`` with no device run on cuda or raise."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from hex_gym_env_tpu_torch.train import SelfplayPPO, Trainer
+    from hex_gym_env_tpu_torch.utils.config import PPOConfig, TrainConfig
+
+    cfg = TrainConfig(ppo=PPOConfig(n_steps=4, minibatch_size=8),
+                      selfplay=SelfplayConfig(board_size=3, n_envs=2, buffer_size=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SelfplayPPO(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg)
+
+
+def test_main_process_without_torch_distributed():
+    from hex_gym_env_tpu_torch.parallel.bootstrap import is_main_process
+
+    assert is_main_process()
 
 
 def test_pinned_kernels_refuse_cpu_tensors():

@@ -7,6 +7,12 @@
 2. holds each kernel against its plain PyTorch twin at the main path's
    shapes (7x7, 256 games, H = 64, 31 bank members, 128 steps), fed the same
    random bits: env ints and actions exactly equal, floats within ``TOL``;
+   the random-legal rollout K7 at the benchmark's 8192 games, exactly equal
+   to its twin over 64 steps with the same bits from the initial state and
+   from a mid-game state with finished rows and a full board, and on its own
+   Philox streams over 512 steps: the invariants of the JAX package's test
+   of the kernel, and mean games per env within 3 standard errors of the
+   twin's on generator bits;
 3. drives the main path: ``SelfplayRunner.run`` of the
    ``7x7_MLP-default_lr-0.0003`` preset three times through the
    whole-rollout kernel, replays the first rollout's record through the
@@ -26,7 +32,13 @@
 7. trains the small config of ``tests/test_learning_curve.py`` for 24
    iterations on the card and asserts that test's thresholds;
 8. profiles one preset iteration;
-9. prints the card, a JSON line of per-kernel numbers, and the final line
+9. runs the env-throughput benchmark ``hex_gym_env_tpu_torch.bench`` (K7,
+   K1 per step, the plain step; 3 samples each), which prints its JSON
+   record, and asserts that every route reported a rate through its kernel;
+10. runs one preset iteration with ``sample_board=True`` (the scan path:
+   K1-K3 every step, K5, K6, and the plain eval loop through K1), with
+   every launch count asserted and sampled boards checked;
+11. prints the card, a JSON line of per-kernel numbers, and the final line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
@@ -45,10 +57,13 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-5  # kernel vs twin: float32 sums in another order (FMA loops vs cuBLAS)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 
 N, B, H, POOL, T = 7, 256, 64, 30, 128
+# K7 at the env-throughput benchmark's shape (hex_gym_env_tpu_torch/bench.py);
+# against its twin with the same injected bits at K7_T_BITS steps (the bits
+# are K7_T_BITS * K7_B * 128 words, 268 MB)
+K7_B, K7_T, K7_T_BITS = 8192, 512, 64
+K7_OPS_PER_LANE_STEP = 19  # score + max, the relabel's 8 compares + 8 ors, the select
 PRESET = "7x7_MLP-default_lr-0.0003"
 # K6 vs its twin: float32 sums in another order (fmaf loops and a fixed
 # slot-order reduction vs cuBLAS); measured ~2e-7 relative after one grad
@@ -82,8 +97,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def bound_ms(n_bytes: float, flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    """The least time for the work: bytes over the card's memory rate or
+    operations over its float32 rate (``utils/roofline.py``), the larger."""
+    from hex_gym_env_tpu_torch.utils import roofline
+
+    t_bytes = n_bytes / roofline.PEAK_HBM_BPS * 1e3
+    t_ops = flops / roofline.PEAK_FLOPS_FP32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -151,6 +170,7 @@ def main() -> int:
     from hex_gym_env_tpu_torch.experiments import get_config
     from hex_gym_env_tpu_torch.models import make_policy
     from hex_gym_env_tpu_torch.ops import cuda_lib, masked
+    from hex_gym_env_tpu_torch.ops import labels as torch_labels
     from hex_gym_env_tpu_torch.ops import policy_kernel as pk
     from hex_gym_env_tpu_torch.ops import rollout_kernel as rk
     from hex_gym_env_tpu_torch.ops import step_kernel
@@ -320,6 +340,89 @@ def main() -> int:
     kernels["k4_rollout"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=k4_err, bound_ms=bnd,
                                  bound_by=by)
     print(f"[K4 rollout] kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms for {T} steps x {B} games")
+
+    # ---- 2e. K7 random-legal rollout vs its twin, the same bits ---------------------
+    gen_c = torch.Generator(device=dev).manual_seed(77)
+    init7 = hex_env.initial_state(topo, K7_B, dev)
+    mid7 = init7
+    for _ in range(30):  # random plies with the plain env; finished games stay done
+        legal7 = hex_env.legal_mask(topo, mid7)
+        a7 = masked.sample(masked.draw_bits(gen_c, legal7.shape, dev),
+                           torch.zeros(legal7.shape, device=dev), legal7)
+        mid7, _ = hex_env.step(topo, mid7, a7)
+    yy, xx = torch.meshgrid(torch.arange(N), torch.arange(N), indexing="ij")
+    full_board = torch.where((yy + xx) % 2 == 0, -1, 1).to(torch.int8)[None].to(dev)
+    full = hex_env.state_from_boards(topo, full_board)  # no empty cell
+    mid7 = dataclasses.replace(mid7, **{
+        name: torch.cat([getattr(full, name), getattr(mid7, name)[1:]])
+        for name in ("stones", "labels", "to_move", "done", "winner", "empty", "move_count")})
+    n_done = int(mid7.done.sum())
+    if not 0 < n_done < K7_B or int(mid7.empty[0]) != 0:
+        fail(f"the K7 mid-game state has {n_done} finished rows and row 0 empty {mid7.empty[0]}")
+    bits7 = masked.draw_bits(gen_c, (K7_T_BITS, K7_B, L), dev)
+    for label, start in (("initial", init7), ("mid-game", mid7)):
+        k_out, k_games = step_kernel.random_rollout_cuda(topo, start, K7_T_BITS, bits=bits7)
+        t_out, t_games = step_kernel.random_rollout_twin(topo, start, K7_T_BITS, bits=bits7)
+        torch.cuda.synchronize()
+        for name in ("stones", "labels", "to_move", "done", "winner", "empty", "move_count"):
+            k, tw = getattr(k_out, name), getattr(t_out, name)
+            if not torch.equal(k, tw):
+                rows = int((k != tw).reshape(K7_B, -1).any(-1).sum())
+                fail(f"K7 from the {label} state: {name} differs from the twin in {rows} games")
+        if not torch.equal(k_games, t_games):
+            fail(f"K7 from the {label} state: games differ from the twin")
+        print(f"[K7 random rollout] from the {label} state ({int(start.done.sum())} done rows): "
+              f"state and games exactly the twin's over {K7_T_BITS} steps x {K7_B} games; "
+              f"{int(k_games.sum())} games finished, row 0 reset {int(k_games[0])} times")
+    if int(k_games[0]) < 1:
+        fail("K7 did not reset the full-board row")
+    k_ms = cuda_ms(lambda: step_kernel.random_rollout_cuda(topo, mid7, K7_T_BITS, bits=bits7), 10)
+    p_ms = cuda_ms(lambda: step_kernel.random_rollout_twin(topo, mid7, K7_T_BITS, bits=bits7), 1)
+    print(f"[K7 random rollout] with injected bits, {K7_T_BITS} steps: kernel {k_ms:.3f} ms, "
+          f"twin {p_ms:.3f} ms")
+    del bits7
+
+    # ---- 2f. K7 on its own Philox streams at the benchmark's shape ---------------------
+    k_out, k_games = step_kernel.random_rollout_cuda(topo, init7, K7_T, generator=gen_c)
+    torch.cuda.synchronize()
+    s0, s1 = k_out.stones[:, 0], k_out.stones[:, 1]
+    if bool((s0 & s1).any()) or bool(s0[:, F:].any()) or bool(s1[:, F:].any()):
+        fail("K7 (Philox): stones overlap or sit on padding lanes")
+    if not torch.equal(k_out.empty, F - (s0 | s1)[:, :F].sum(-1).to(torch.int32)):
+        fail("K7 (Philox): empty disagrees with the boards")
+    lo, hi = K7_T // 49, K7_T // 13 + 1
+    if int(k_games.min()) < lo or int(k_games.max()) > hi:
+        fail(f"K7 (Philox): games per env in [{int(k_games.min())}, {int(k_games.max())}], "
+             f"not in [{lo}, {hi}]")
+    fresh7 = torch_labels.labels_from_stones(topo, k_out.stones)
+    for r0 in range(0, K7_B, 1024):
+        got, want = k_out.labels[r0:r0 + 1024], fresh7[r0:r0 + 1024]
+        if not torch.equal(got[:, :, None] == got[:, None, :], want[:, :, None] == want[:, None, :]):
+            fail("K7 (Philox): labels do not partition as labels_from_stones")
+    for seat in range(2):
+        if bool(torch_labels.seat_wins(topo, k_out.labels, seat).any()):
+            fail(f"K7 (Philox): seat {seat} holds a win")
+    start_ev, end_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start_ev.record()
+    t_out, t_games = step_kernel.random_rollout_twin(topo, init7, K7_T, generator=gen_c)
+    end_ev.record()
+    torch.cuda.synchronize()
+    k7_plain_ms = start_ev.elapsed_time(end_ev)
+    kg, tg = k_games.double(), t_games.double()
+    se = float((kg.var() / K7_B + tg.var() / K7_B).sqrt())
+    if abs(float(kg.mean() - tg.mean())) >= 3 * se:
+        fail(f"K7 (Philox) mean games {float(kg.mean())} vs the twin's {float(tg.mean())} "
+             f"(3 standard errors {3 * se})")
+    k7_ms = cuda_ms(lambda: step_kernel.random_rollout_cuda(topo, init7, K7_T, generator=gen_c), 10)
+    k7_bytes = K7_B * (6 * L + 2 * 4) + K7_B * (6 * L + 4 * 4 + 1 + 4)  # state in; out + games
+    bnd, by = bound_ms(k7_bytes, K7_T * K7_B * L * K7_OPS_PER_LANE_STEP)
+    kernels["k7_random_rollout"] = dict(ms=k7_ms, plain_ms=k7_plain_ms, max_abs_err=0.0,
+                                        bound_ms=bnd, bound_by=by)
+    print(f"[K7 philox] {K7_T} steps x {K7_B} games: invariants hold; games per env "
+          f"[{int(k_games.min())}, {int(k_games.max())}], mean {float(kg.mean()):.4f} vs the twin's "
+          f"{float(tg.mean()):.4f} on generator bits (3 SE {3 * se:.4f}); kernel {k7_ms:.3f} ms "
+          f"({K7_T * K7_B / k7_ms / 1e3:.0f} M env-steps/s), twin {k7_plain_ms:.1f} ms, "
+          f"bound {bnd:.4f} ms ({by})")
 
     # ---- 3. main path: the preset's fused rollout ----------------------------------
     runner = SelfplayRunner(topo, model, cfg, device=dev)
@@ -627,7 +730,73 @@ def main() -> int:
           + "; ".join(f"{k[:40]} {v:.1f}" for k, v in top_host))
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 9. report -----------------------------------------------------------------------
+    # ---- 9. the env-throughput benchmark: K7, K1 per step, the plain step ----------------
+    from hex_gym_env_tpu_torch import bench
+
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    bench_rec = bench.main(repeats=3)  # prints its JSON record
+    torch.cuda.synchronize()
+    bench_counts = dict(cuda_lib.launches)
+    for route in ("pallas", "api", "lax"):
+        if not bench_rec[route]["median"] > 0:
+            fail(f"the benchmark's {route} route reported no rate")
+    if bench_counts["k7_random_rollout"] == 0 or bench_counts["k1_step"] == 0:
+        fail(f"the benchmark did not run through K7 and K1: {bench_counts}")
+    print(f"[bench] {time.perf_counter() - t0:.1f} s; launches {bench_counts}; env-steps/s "
+          + ", ".join(f"{r} {bench_rec[r]['median']:.4g}" for r in ("pallas", "api", "lax")))
+
+    # ---- 10. sample_board: one preset iteration from sampled boards (scan path) -----------
+    sb_cfg = get_config(PRESET, sample_board=True)
+    sb_algo = SelfplayPPO(sb_cfg, device=dev)
+    if (sb_algo.runner.fused_pol is not None or sb_algo.runner.pol is None
+            or sb_algo.evaluator.fused_pol is not None):
+        fail("sample_board does not resolve to the scan path and the plain eval loop")
+    sb_state = sb_algo.init_state(5)
+    fresh_sb = sb_algo.runner.fresh_envs(torch.Generator().manual_seed(9))
+    starts_sb = sb_algo.evaluator.start_states(sb_cfg.selfplay.eval_episodes,
+                                               torch.Generator().manual_seed(9))
+    if int(fresh_sb.stones.sum()) == 0 or int(starts_sb.stones.sum()) == 0:
+        fail("sample_board: the fresh boards or the evaluator's start states hold no stone")
+    sb_T = sb_cfg.ppo.n_steps
+    sb_times, sb_counts = [], []
+    for stage_fn in (sb_algo.train_step, sb_algo.eval_step):
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sb_state, sb_out = stage_fn(sb_state)
+        torch.cuda.synchronize()
+        sb_times.append(time.perf_counter() - t0)
+        sb_counts.append(dict(cuda_lib.launches))
+    want_train = dict.fromkeys(cuda_lib.KERNELS, 0)
+    want_train.update(k1_step=3 * sb_T, k2_agent=sb_T, k3_bank=2 * sb_T, k5_gae=1, k6_ppo=1)
+    want_eval = dict.fromkeys(cuda_lib.KERNELS, 0)
+    want_eval.update(k1_step=1 + 2 * (F // 2 + 2))
+    if sb_counts != [want_train, want_eval]:
+        fail(f"sample_board launched {sb_counts}, expected {[want_train, want_eval]}")
+    if not all(bool(torch.isfinite(v).all()) for v in sb_state.params.values()):
+        fail("sample_board: non-finite parameters")
+    print(f"[sample_board] fresh boards hold {int(fresh_sb.stones.sum())} stones over {B} games, "
+          f"eval starts {int(starts_sb.stones.sum())} over {sb_cfg.selfplay.eval_episodes}; "
+          f"train_step {sb_times[0]:.3f} s, eval_step {sb_times[1]:.3f} s; launches train "
+          f"{sb_counts[0]}, eval {sb_counts[1]}; eval mean reward {float(sb_out.mean_reward):.3f}")
+    # the sampled boards of every rollout step's resets: how much of the step they take
+    g9 = torch.Generator().manual_seed(9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sb_algo.runner.fresh_envs(g9)
+    torch.cuda.synchronize()
+    print(f"[sample_board] fresh_envs (sample_boards + state_from_boards, {B} games): "
+          f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms per call, once per rollout step")
+    wall_us, busy, top, top_host = device_profile(lambda: sb_algo.runner.fresh_envs(g9))
+    print(f"[profile] one sample_board fresh_envs: wall {wall_us:.1f} us, device busy {busy:.1f} us "
+          f"({100 * busy / wall_us:.1f}%); top kernels (us): "
+          + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
+    print("[profile] top host ops by self CPU time (us): "
+          + "; ".join(f"{k[:40]} {v:.1f}" for k, v in top_host))
+
+    # ---- 11. report ----------------------------------------------------------------------
     rollout_src = "hex_gym_env_tpu_torch/csrc/hex_kernels.cu"
     learner_src = "hex_gym_env_tpu_torch/csrc/learner_kernels.cu"
     meta = {
@@ -640,6 +809,8 @@ def main() -> int:
                        rollout_src),
         "k5_gae": ("hex_gym_env_tpu/ops/pallas_gae.py:32", train_counts["k5_gae"], learner_src),
         "k6_ppo": ("hex_gym_env_tpu/ops/pallas_ppo.py:119", train_counts["k6_ppo"], learner_src),
+        "k7_random_rollout": ("hex_gym_env_tpu/ops/pallas_step.py:228",
+                              bench_counts["k7_random_rollout"], rollout_src),
     }
     rows = []
     for name, (replaces, launches, source) in meta.items():

@@ -45,6 +45,38 @@ def initial_state(topo: HexTopology, batch: int, device=None) -> HexState:
     )
 
 
+def state_from_boards(
+    topo: HexTopology, boards: torch.Tensor, to_move: Optional[torch.Tensor] = None
+) -> HexState:
+    """State from (B, N, N) world-frame boards (-1 seat 0 / +1 seat 1 / 0
+    empty), on the boards' device.
+
+    The labels come from the replay of ``labels.labels_from_stones`` (the
+    reference replays stone by stone at construction,
+    ``HexSingleGame.py:57-65``).  Seat 0 moves unless ``to_move`` (B,) is
+    given (the reference's ``reset`` always restarts with black,
+    ``HexSingleGame.py:209``)."""
+    batch = boards.shape[0]
+    b = boards.reshape(batch, topo.num_cells).to(torch.int8)
+    b = torch.nn.functional.pad(b, (0, topo.lanes - topo.num_cells))
+    stones = torch.stack([b == -1, b == 1], dim=1)
+    occupied = stones.any(dim=1)[:, : topo.num_cells].sum(dim=-1).to(torch.int32)
+    dev = boards.device
+    return HexState(
+        stones=stones,
+        labels=labels_ops.labels_from_stones(topo, stones),
+        to_move=(
+            torch.zeros((batch,), dtype=torch.int32, device=dev)
+            if to_move is None
+            else to_move.to(device=dev, dtype=torch.int32)
+        ),
+        done=torch.zeros((batch,), dtype=torch.bool, device=dev),
+        winner=torch.full((batch,), int(Winner.ONGOING), dtype=torch.int32, device=dev),
+        empty=topo.num_cells - occupied,
+        move_count=torch.zeros((batch,), dtype=torch.int32, device=dev),
+    )
+
+
 def world_boards(topo: HexTopology, state: HexState) -> torch.Tensor:
     """(B, N, N) int8 world-frame boards: -1 seat0, +1 seat1, 0 empty."""
     vals = state.stones[:, 1].to(torch.int8) - state.stones[:, 0].to(torch.int8)

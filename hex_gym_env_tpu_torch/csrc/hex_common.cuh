@@ -227,7 +227,9 @@ __device__ inline int masked_sample(float* logits, const uint8_t* legal, int A, 
 // lane t (blockDim.x >= L).  Places seat s's stone at world cell c when act
 // (c must then lie in [0, L)), relabels every node of the merged group to c,
 // and returns the win: the mover's two edge virtuals share a group after the
-// move.  act is uniform over the CTA, so the early return is too.
+// move.  With pre_connected false only a join made by this stone's group
+// counts (K7's test), not edges that were connected before the move.  act
+// is uniform over the CTA, so the early return is too.
 // ---------------------------------------------------------------------------
 
 struct Board {
@@ -235,7 +237,7 @@ struct Board {
 };
 
 __device__ inline bool place_stone(const Board& g, uint8_t* st0, uint8_t* st1, int* lab, int s,
-                                   int c, bool act) {
+                                   int c, bool act, bool pre_connected = true) {
   if (!act) return false;
   const int n = g.n;
   const uint8_t* mine = s == 0 ? st0 : st1;
@@ -273,7 +275,7 @@ __device__ inline bool place_stone(const Board& g, uint8_t* st0, uint8_t* st1, i
   }
   if (t == c) (s == 0 ? st0 : st1)[c] = 1;
   __syncthreads();
-  return (joined0 && joined1) || lab_e0 == lab_e1;
+  return (joined0 && joined1) || (pre_connected && lab_e0 == lab_e1);
 }
 
 }  // namespace hex

@@ -1,5 +1,6 @@
-// The selfplay rollout's kernels for Hopper (sm_90a), behind a plain C
-// interface loaded with ctypes (ops/cuda_lib.py).  Build:
+// The env and selfplay rollout's kernels (K1-K4, and K7, the random-legal
+// rollout of the env-throughput benchmark) for Hopper (sm_90a), behind a
+// plain C interface loaded with ctypes (ops/cuda_lib.py).  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libhexkernels.so hex_kernels.cu
 // Never with --use_fast_math: tanhf/logf/expf must stay the library ones,
@@ -442,6 +443,107 @@ __global__ void rollout_kernel(RolloutArgs a) {
   }
 }
 
+// ===========================================================================
+// K7 — the fused random-legal rollout.  Replaces
+// ops/pallas_step.py:_random_rollout_kernel (entry `random_rollout`).  T
+// uniform-random legal moves per game with auto-reset, for the env-throughput
+// benchmark.  One game per CTA, one thread per lane (blockDim = L); the time
+// loop runs inside the CTA and the game's stones and labels stay in shared
+// memory for all T steps, as in K4.
+//
+// Per step: the move is the argmax over lanes of (bits >> 8) + 1 on empty
+// real cells and 0 elsewhere (lowest lane on ties; lane 0 when no cell is
+// empty, as on a full board handed in), placed in the world frame; the
+// union through hex::place_stone with the win test joined_e0 & joined_e1
+// only (no pre-connected term, unlike K1); on a win or a full board the game
+// resets to zero stones, identity labels over all L lanes, seat 0 to move
+// and num_cells empty, and `games` counts the resets.  Only to_move and
+// empty are read of the per-game scalars (a game that came in done is
+// played on); done 0, winner -1 and move_count 0 are written, as the JAX
+// kernel's meta.
+//
+// Bound: operations.  Per game and step each of the L lanes needs its score
+// and its max (2), the relabel's 8 compares and 8 ors (16) and the label
+// select (1): 19 L 32-bit integer operations, 1.0e10 at B = 8192, T = 512,
+// L = 128, 0.15 ms at the fp32 rate (no integer op runs faster).  Bytes:
+// the state in and out, ~13 MB at that shape, 4 us (plus 4 T B L with
+// injected bits).  This simple design is latency-bound: five barriers per
+// step (two in the argmax, two in the union, one in the next argmax).
+// ===========================================================================
+
+struct RandomRolloutArgs {
+  const uint8_t* stones;  // (B, 2, L) bool
+  const int* labels;      // (B, L)
+  const int* to_move;
+  const int* empty;
+  const uint32_t* bits;  // (T, B, L) or null: Philox
+  unsigned long long seed;
+  uint8_t* o_stones;
+  int* o_labels;
+  int* o_to_move;
+  uint8_t* o_done;
+  int* o_winner;
+  int* o_empty;
+  int* o_moves;
+  int* o_games;  // (B,) resets
+  Board g;
+  int B, T;
+};
+
+__global__ void random_rollout_kernel(RandomRolloutArgs a) {
+  extern __shared__ int smem_rr[];
+  __shared__ Scratch red;
+  const Board& g = a.g;
+  const int b = blockIdx.x, t = threadIdx.x, L = g.L, F = g.F;
+  int* lab = smem_rr;
+  uint8_t* st0 = reinterpret_cast<uint8_t*>(lab + L);
+  uint8_t* st1 = st0 + L;
+  lab[t] = a.labels[b * L + t];
+  st0[t] = a.stones[(2 * b) * L + t];
+  st1[t] = a.stones[(2 * b + 1) * L + t];
+  int s = a.to_move[b], empty = a.empty[b], games = 0;
+
+  const bool injected = a.bits != nullptr;
+  curandStatePhilox4_32_10_t st;
+  if (!injected) philox_init(&st, a.seed);
+  __syncthreads();
+
+  for (int step = 0; step < a.T; ++step) {
+    const uint32_t w =
+        injected ? a.bits[(static_cast<long long>(step) * a.B + b) * L + t] : curand(&st);
+    // (bits >> 8) + 1 <= 2^24 is exact in float32, as in the JAX kernel
+    const bool free_cell = t < F && !(st0[t] | st1[t]);
+    const float score = free_cell ? static_cast<float>((w >> 8) + 1u) : 0.0f;
+    const int c = hex::block_argmax(score, t, red);
+
+    const bool joined = hex::place_stone(g, st0, st1, lab, s, c, true, false);
+    empty -= 1;
+    if (joined || empty <= 0) {
+      lab[t] = t;
+      st0[t] = 0;
+      st1[t] = 0;
+      s = 0;
+      empty = F;
+      ++games;
+    } else {
+      s = 1 - s;
+    }
+    // the next step reads other lanes only after block_argmax's barriers
+  }
+
+  a.o_labels[b * L + t] = lab[t];
+  a.o_stones[(2 * b) * L + t] = st0[t];
+  a.o_stones[(2 * b + 1) * L + t] = st1[t];
+  if (t == 0) {
+    a.o_to_move[b] = s;
+    a.o_done[b] = 0;
+    a.o_winner[b] = -1;
+    a.o_empty[b] = empty;
+    a.o_moves[b] = 0;
+    a.o_games[b] = games;
+  }
+}
+
 // shared-memory bytes of the x/h0/h1/y float buffers
 int mlp_smem_bytes(const Mlp& m) { return (m.F + 4 * m.H + m.A + 1) * static_cast<int>(sizeof(float)); }
 
@@ -568,6 +670,25 @@ int hex_rollout(const void* agent, const void* bank, const void* first, int F, i
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(rollout_kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   rollout_kernel<<<B, L, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return finish_launch();
+}
+
+int hex_random_rollout(const void* stones, const void* labels, const void* to_move,
+                       const void* empty, const void* bits, unsigned long long seed,
+                       void* o_stones, void* o_labels, void* o_to_move, void* o_done,
+                       void* o_winner, void* o_empty, void* o_moves, void* o_games, int B, int n,
+                       int L, int T, void* stream) {
+  RandomRolloutArgs a{static_cast<const uint8_t*>(stones), static_cast<const int*>(labels),
+                      static_cast<const int*>(to_move),    static_cast<const int*>(empty),
+                      static_cast<const uint32_t*>(bits),  seed,
+                      static_cast<uint8_t*>(o_stones),     static_cast<int*>(o_labels),
+                      static_cast<int*>(o_to_move),        static_cast<uint8_t*>(o_done),
+                      static_cast<int*>(o_winner),         static_cast<int*>(o_empty),
+                      static_cast<int*>(o_moves),          static_cast<int*>(o_games),
+                      Board{n, n * n, L},                  B,
+                      T};
+  const int smem = L * (static_cast<int>(sizeof(int)) + 2);
+  random_rollout_kernel<<<B, L, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return finish_launch();
 }
 

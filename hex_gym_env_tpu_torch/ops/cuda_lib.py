@@ -1,6 +1,7 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
-The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4) and
+The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4 and the
+random-legal rollout K7) and
 ``csrc/learner_kernels.cu`` (the learner's K5-K6), with the shared device
 code in ``csrc/hex_common.cuh``, behind a plain C interface.  On first use
 each ``.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once
@@ -41,7 +42,9 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-KERNELS = ("k1_step", "k2_agent", "k3_bank", "k4_rollout", "k5_gae", "k6_ppo")
+KERNELS = (
+    "k1_step", "k2_agent", "k3_bank", "k4_rollout", "k5_gae", "k6_ppo", "k7_random_rollout",
+)
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 P = ctypes.c_void_p
@@ -61,6 +64,11 @@ _ARGTYPES = {
         + [P, P, P]  # obs / ints / flts
         + [P] * 9  # state out
         + [I, I, I, I, F32, I, I, P]
+    ),
+    "hex_random_rollout": (
+        [P] * 5 + [U64]  # state in, bits, philox seed
+        + [P] * 8  # state out + games
+        + [I, I, I, I, P]  # B, n, L, T, stream
     ),
     "hex_gae": [P] * 6 + [I, I, F32, F32, P],
     "hex_ppo": (

@@ -67,11 +67,14 @@ def place_stone(
     seat: torch.Tensor,  # (B,) int32
     c: torch.Tensor,  # (B,) int32 world cell of the new stone
     act: torch.Tensor,  # (B,) bool — games where the move actually applies
+    pre_connected: bool = True,
 ):
     """Merge the new stone's group; returns ``(labels', win (B,) bool)``.
 
     ``win`` is true when the mover's two edges share a group after the move,
-    including the case where they were already connected before it.
+    including, with ``pre_connected``, the case where they were already
+    connected before it.  The random-legal rollout (K7) counts only a join
+    made by the new stone's group: ``pre_connected=False``.
     """
     ids, valid = _slot_ids_valid(topo, seat, c)
     slot_labels = labels.gather(1, ids)  # (B, 8)
@@ -89,9 +92,30 @@ def place_stone(
     label_e1 = slot_labels[:, 7:8]
     joined_e0 = (eligible & (slot_labels == label_e0)).any(dim=1)
     joined_e1 = (eligible & (slot_labels == label_e1)).any(dim=1)
-    pre_connected = label_e0[:, 0] == label_e1[:, 0]
-    win = act & ((joined_e0 & joined_e1) | pre_connected)
-    return new_labels, win
+    win = joined_e0 & joined_e1
+    if pre_connected:
+        win = win | (label_e0[:, 0] == label_e1[:, 0])
+    return new_labels, act & win
+
+
+def labels_from_stones(topo: HexTopology, stones: torch.Tensor) -> torch.Tensor:
+    """Rebuild label tables from (B, 2, L) bool occupancy (sampled boards).
+
+    A replay over the cells in row-major order through ``place_stone`` — the
+    batched form of the reference's construction loop
+    (``HexSingleGame.py:57-65``).  Each cell's merge sees its seat's whole
+    final occupancy, as in the JAX package, so the labels (not only the
+    partition) are the JAX package's.
+    """
+    batch = stones.shape[0]
+    labels = initial_labels(topo, batch, stones.device)
+    for c in range(topo.num_cells):
+        has0, has1 = stones[:, 0, c], stones[:, 1, c]
+        seat = has1.to(torch.int32)  # 0 for a seat-0 stone or none
+        cc = torch.full((batch,), c, dtype=torch.int32, device=stones.device)
+        mover = torch.where(has1[:, None], stones[:, 1], stones[:, 0])
+        labels, _ = place_stone(topo, labels, mover, seat, cc, has0 | has1)
+    return labels
 
 
 def connected_to_edge(

@@ -19,7 +19,8 @@ N^2 // 2 + 2 agent/opponent move pairs covers any game (finished games
 freeze).  Where the whole-rollout kernel resolves (``rollout_kernel.resolve``)
 the eval pass is the opening move through the env step (K1 on the card) and
 then one K4 launch in ``eval_mode``; configs that pin the scan/lax paths,
-and ``symmetric_eval``, take the plain loop.
+``sample_board`` (episodes start from random mid-game boards) and
+``symmetric_eval`` take the plain loop.
 
 Seat protocol: under ``seat_mode="per_episode"`` each eval episode draws a
 fresh agent seat.  Under ``seat_mode="fixed_random"`` eval episode ``i``
@@ -35,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from hex_gym_env_tpu_torch.core import env as hex_env
+from hex_gym_env_tpu_torch.core import random_board
 from hex_gym_env_tpu_torch.core.topology import HexTopology
 from hex_gym_env_tpu_torch.models.mlp import ACTIVATIONS
 from hex_gym_env_tpu_torch.ops import masked
@@ -111,6 +113,14 @@ class Evaluator:
         a = masked.sample(masked.draw_bits(generator, legal.shape, self.device), logits, legal)
         return self.step(topo, st, a, active=active)
 
+    def start_states(self, n_episodes: int, generator: torch.Generator):
+        """The eval episodes' boards before the opening move: empty, or under
+        ``sample_board`` random mid-game boards drawn from ``generator``."""
+        if self.cfg.sample_board:
+            boards = random_board.sample_boards(generator, self.topo, n_episodes)
+            return hex_env.state_from_boards(self.topo, boards.to(self.device))
+        return hex_env.initial_state(self.topo, n_episodes, self.device)
+
     @torch.no_grad()
     def play_vs_pool(
         self,
@@ -126,7 +136,7 @@ class Evaluator:
         topo, cfg, dev = self.topo, self.cfg, self.device
         P, E = bank.size, cfg.eval_episodes
         sym = cfg.symmetric_eval
-        if self.fused_pol is not None and not sym:
+        if self.fused_pol is not None and not cfg.sample_board and not sym:
             return self._play_vs_pool_fused(params, bank, generator, fixed_seats)
         if sym:
             # every served member twice, once with the agent in each seat;
@@ -142,7 +152,7 @@ class Evaluator:
             seat = eval_seats(cfg, generator, E, fixed_seats, dev)
         served = {k: v[serve] for k, v in bank.params.items()}
 
-        state = hex_env.initial_state(topo, n_ep, dev)
+        state = self.start_states(n_ep, generator)
         # the opponent opens where it holds seat 0
         state, _ = self._opponent_move(served, state, generator, active=seat == 1)
         total = torch.zeros((n_ep,), dtype=torch.float32, device=dev)

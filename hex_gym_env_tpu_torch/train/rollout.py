@@ -18,7 +18,11 @@ CPU device).  The scan path loops over steps in Python, each step calling
 the agent pass K2 and the bank pass K3 (``ops/policy_kernel.py``) and the
 env step K1 (``ops/step_kernel.py``), or the plain model and env where the
 ``*_impl`` knobs pin "lax".  Both draw their randomness from a
-``torch.Generator``; the kernels seed Philox streams from it.
+``torch.Generator``; the kernels seed Philox streams from it.  Under
+``sample_board`` fresh games start from random mid-game boards
+(``core/random_board.py``); the whole-rollout kernel refuses that mode, so
+it takes the scan path, where the opponent's opening move on a reset is a
+full bank pass instead of the empty-board table.
 
 Agent parameters are an ``MlpPolicy`` state dict; the model is the skeleton
 the plain path calls them through (``torch.func.functional_call``).
@@ -27,11 +31,12 @@ the plain path calls them through (``torch.func.functional_call``).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from hex_gym_env_tpu_torch.core import env as hex_env
+from hex_gym_env_tpu_torch.core import random_board
 from hex_gym_env_tpu_torch.core.state import HexState
 from hex_gym_env_tpu_torch.core.topology import HexTopology
 from hex_gym_env_tpu_torch.models.mlp import MlpPolicy, stacked_pi_logits
@@ -72,10 +77,6 @@ class SelfplayRunner:
     ``device="cpu"`` to run the plain PyTorch twins."""
 
     def __init__(self, topo: HexTopology, model: MlpPolicy, cfg: SelfplayConfig, device=None):
-        if cfg.sample_board:
-            raise NotImplementedError(
-                "sample_board is not ported yet (ROADMAP.md, 'core/random_board.py')"
-            )
         self.topo = topo
         self.model = model
         self.cfg = cfg
@@ -89,7 +90,12 @@ class SelfplayRunner:
 
     # -- helpers -----------------------------------------------------------
 
-    def fresh_envs(self) -> HexState:
+    def fresh_envs(self, generator: Optional[torch.Generator] = None) -> HexState:
+        """Fresh games: empty boards, or under ``sample_board`` random
+        mid-game boards drawn from ``generator``."""
+        if self.cfg.sample_board:
+            boards = random_board.sample_boards(generator, self.topo, self.cfg.n_envs)
+            return hex_env.state_from_boards(self.topo, boards.to(self.device))
         return hex_env.initial_state(self.topo, self.cfg.n_envs, self.device)
 
     def policy_logits_value(self, params, state: HexState):
@@ -139,12 +145,16 @@ class SelfplayRunner:
 
     def reset_finished(
         self, carry: RolloutCarry, bank: OpponentBank, generator: torch.Generator,
-        first_logits, stacked=None,
+        first_logits=None, stacked=None,
     ) -> RolloutCarry:
-        """Auto-reset done games + seat/opponent redraw + opponent first move."""
+        """Auto-reset done games + seat/opponent redraw + opponent first move.
+
+        ``first_logits`` (the empty-board table of ``first_move_logits``)
+        serves the opening move on empty resets; under ``sample_board`` it is
+        None and the opponent's full bank pass plays it."""
         cfg = self.cfg
         m = carry.env.done
-        st = hex_env.reset_where(self.topo, carry.env, m, self.fresh_envs())
+        st = hex_env.reset_where(self.topo, carry.env, m, self.fresh_envs(generator))
 
         seat = carry.agent_seat
         if cfg.seat_mode == "per_episode":
@@ -158,20 +168,26 @@ class SelfplayRunner:
         opp_idx = torch.where(m, ni, carry.opp_idx)
 
         # Where the opponent holds seat 0 it opens the fresh game
-        # (SelfplayWrapper.py:79-81); every cell of the empty board is legal
-        # and inactive rows' samples are discarded by the step's mask.
+        # (SelfplayWrapper.py:79-81); inactive rows' samples are discarded
+        # by the step's mask.
+        active = m & (seat == 1)
+        if first_logits is None:
+            st, _ = self.opponent_move(
+                bank, use_best, opp_idx, st, generator, active=active, stacked=stacked)
+            return RolloutCarry(env=st, agent_seat=seat, use_best=use_best, opp_idx=opp_idx)
+        # every cell of the empty board is legal
         members, best_l = first_logits
         logits = torch.where(use_best[:, None], best_l[None, :], members[opp_idx.long()])
         bits = masked.draw_bits(generator, logits.shape, self.device)
         action = masked.sample_masked(logits, bits)
-        st, _ = self.step(self.topo, st, action, active=m & (seat == 1))
+        st, _ = self.step(self.topo, st, action, active=active)
         return RolloutCarry(env=st, agent_seat=seat, use_best=use_best, opp_idx=opp_idx)
 
     # -- entry points ------------------------------------------------------
 
     def init_carry(self, bank: OpponentBank, generator: torch.Generator) -> RolloutCarry:
         cfg = self.cfg
-        st = self.fresh_envs()
+        st = self.fresh_envs(generator)
         seat = torch.rand((cfg.n_envs,), generator=generator, device=generator.device) < 0.5
         seat = seat.to(self.device).to(torch.int32)
         use_best, opp_idx = sample_opponents(
@@ -234,7 +250,8 @@ class SelfplayRunner:
 
     @torch.no_grad()
     def _run_scan(self, params, bank, carry, generator, n_steps):
-        first_logits = self.first_move_logits(bank)
+        # a sampled board is not empty: no opening-move table
+        first_logits = None if self.cfg.sample_board else self.first_move_logits(bank)
         pol = self.pol
         packed_agent = pol.pack_agent(params) if pol is not None else None
         stacked_bank = pol.stack_bank(bank) if pol is not None else None

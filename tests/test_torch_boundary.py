@@ -30,7 +30,10 @@ def test_package_imports_no_jax():
         "hex_gym_env_tpu_torch.ops.gae_kernel, hex_gym_env_tpu_torch.ops.ppo_kernel, "
         "hex_gym_env_tpu_torch.train.trainer, hex_gym_env_tpu_torch.utils.checkpoint, "
         "hex_gym_env_tpu_torch.utils.metrics, hex_gym_env_tpu_torch.parallel.bootstrap, "
-        "hex_gym_env_tpu_torch.models.convert, hex_gym_env_tpu_torch.experiments\n"
+        "hex_gym_env_tpu_torch.models.convert, hex_gym_env_tpu_torch.experiments, "
+        "hex_gym_env_tpu_torch.bench, hex_gym_env_tpu_torch.core.random_board, "
+        "hex_gym_env_tpu_torch.ops.connectivity, hex_gym_env_tpu_torch.utils.roofline, "
+        "hex_gym_env_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r "
         "or m == 'hex_gym_env_tpu' or m.startswith('hex_gym_env_tpu.'))\n"
         "assert not bad, bad\n" % (FORBIDDEN,)

@@ -43,6 +43,13 @@
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
 CUDA device is present or the port's sources are not beside it.
+
+    python3 chip_smoke.py --split-only LABEL
+
+only builds the kernels and prints, on lines tagged ``[split LABEL]``, the
+phase clocks of K6 (the preset's 80-step sweep) and K4 (the preset's
+rollout) with their times: run from an unpacked older tree in the same call,
+it gives the split before a change beside the split after it.
 """
 
 from __future__ import annotations
@@ -153,17 +160,131 @@ def device_profile(fn):
     return wall_us, sum(device_us.values()), top, top_host
 
 
+def phase_splits(label: str) -> dict:
+    """Time K4's preset rollout (Philox) and K6's preset sweep on that
+    rollout's record, each once more with its phase clock on, and print
+    the per-phase split; returns {kernel: (ms, split rows)}."""
+    import torch
+    from hex_gym_env_tpu_torch.core.topology import get_topology
+    from hex_gym_env_tpu_torch.experiments import get_config
+    from hex_gym_env_tpu_torch.models import make_policy
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+    from hex_gym_env_tpu_torch.ops import policy_kernel as pk
+    from hex_gym_env_tpu_torch.ops import ppo_kernel as pkk
+    from hex_gym_env_tpu_torch.ops import rollout_kernel as rk
+    from hex_gym_env_tpu_torch.train import ppo
+    from hex_gym_env_tpu_torch.train.bank import OpponentBank, init_bank
+    from hex_gym_env_tpu_torch.train.rollout import SelfplayRunner
+    from hex_gym_env_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    tcfg = get_config(PRESET)
+    cfg, pcfg = tcfg.selfplay, tcfg.ppo
+    topo = get_topology(N)
+    A = topo.num_cells
+    g = torch.Generator().manual_seed(4321)
+    model = make_policy(cfg.policy, A, generator=g)
+    params = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
+    snaps = [make_policy(cfg.policy, A, generator=g).state_dict() for _ in range(POOL + 1)]
+    bank0 = init_bank(params, POOL)
+    bank = OpponentBank(
+        params={k: torch.stack([s[k] for s in snaps[:POOL]]).to(dev) for k in params},
+        scores=bank0.scores, best_params={k: v.to(dev) for k, v in snaps[POOL].items()},
+        best_score=bank0.best_score)
+    pol = pk.PolicyOps(model, "pallas")
+    d = pol.dims
+    packed = pol.pack_agent(params)
+    stacked = pol.stack_bank(bank)
+    table = rk.first_move_table(stacked, d)
+    carry = SelfplayRunner(topo, model, cfg, device=dev).init_carry(bank, g)
+    gk = torch.Generator().manual_seed(5)
+
+    def rollout(timers=None):
+        return rk.fused_rollout(topo, pol, packed, stacked, table, carry.env, carry.agent_seat,
+                                carry.use_best, carry.opp_idx, T, cfg.best_prob, True,
+                                generator=gk, timers=timers)
+
+    def timed_once(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    out = {}
+    k4_ms = cuda_ms(rollout, 10)
+    timers = torch.zeros((B, T, rk.ROLLOUT_MARKS), dtype=torch.int64, device=dev)
+    rec, total = timed_once(lambda: rollout(timers))
+    rows = profiling.phase_split(timers.cpu().numpy(), rk.ROLLOUT_PHASES, total)
+    out["k4_rollout"] = (k4_ms, rows)
+    print(f"[split {label}] K4 preset rollout ({T} steps x {B} games): {k4_ms:.4f} ms "
+          f"({total:.4f} ms clocked); per step, median (max) over games: "
+          + profiling.format_split(rows))
+
+    n, mbs = T * B, pcfg.minibatch_size
+    g6 = torch.Generator().manual_seed(11)
+    obs6 = rec.obs.reshape(n, A).contiguous()
+    flt6 = torch.stack([
+        rec.ints[..., rk.I_ACTION].reshape(n).to(torch.float32), rec.flts[..., rk.F_LOGP].reshape(n),
+        torch.randn(n, generator=g6).to(dev), torch.randn(n, generator=g6).to(dev)], 1).contiguous()
+    mu = {k: (torch.randn(v.shape, generator=g6) * 1e-3).to(dev) for k, v in params.items()}
+    nu = {k: (torch.rand(v.shape, generator=g6) * 1e-5).to(dev) for k, v in params.items()}
+    packed3 = (pol.pack_agent(params), pol.pack_agent(mu), pol.pack_agent(nu))
+    idx = ppo.minibatch_indices(ppo.epoch_permutations(g6, n, pcfg.n_epochs), n, mbs)
+    idx = idx.to(dev, torch.int32).contiguous()
+    G = idx.shape[0]
+    bias = ppo.bias_corrections(37, G, dev)
+
+    def sweep(timers=None):
+        return pkk.sweep(pol, pcfg, *packed3, obs6, flt6, idx, bias, timers=timers)
+
+    k6_ms = cuda_ms(sweep, 3)
+    grid = cuda_lib.ppo_plan(d.F, d.H, d.A, d.n_layers, mbs)[0]
+    timers = torch.zeros((grid, G, pkk.PPO_MARKS), dtype=torch.int64, device=dev)
+    _, total = timed_once(lambda: sweep(timers))
+    rows = profiling.phase_split(timers.cpu().numpy(), pkk.PPO_PHASES, total)
+    out["k6_ppo"] = (k6_ms, rows)
+    print(f"[split {label}] K6 preset sweep ({G} steps, {grid} CTAs): {k6_ms:.4f} ms "
+          f"({total:.4f} ms clocked), {1000 * k6_ms / G:.2f} us per grad step; per step, median "
+          "(max) over CTAs: " + profiling.format_split(rows))
+    return out
+
+
+def preflight(torch) -> bool:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return False
+    if not os.path.exists(os.path.join(REPO, "hex_gym_env_tpu_torch", "csrc", "hex_kernels.cu")):
+        print("chip_smoke: the port's sources are not beside this script", file=sys.stderr)
+        return False
+    sys.path.insert(0, REPO)
+    return True
+
+
+def split_only(label: str) -> int:
+    import torch
+
+    if not preflight(torch):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_lib.build(verbose=True)
+    cuda_lib.lib()
+    print(f"[split {label}] kernels built in {time.perf_counter() - t0:.1f} s")
+    phase_splits(label)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
+    if not preflight(torch):
         return 1
-    if not os.path.exists(os.path.join(REPO, "hex_gym_env_tpu_torch", "csrc", "hex_kernels.cu")):
-        print("chip_smoke: the port's sources are not beside this script", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
 
     from hex_gym_env_tpu_torch.core import env as hex_env
     from hex_gym_env_tpu_torch.core.topology import get_topology
@@ -599,6 +720,9 @@ def main() -> int:
               f"8 steps at mb {mbs}, relative errors " + ", ".join(f"{x:.3g}" for x in rel)
               + f"; kernel {f_ms:.3f} ms")
 
+    # ---- 5d. the phase clocks of K4 and K6 at the preset ------------------------------
+    phase_splits("this tree")
+
     # ---- 6. main path, training: Trainer.fit of the preset -----------------------------
     per_iter = B * T
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -833,4 +957,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--split-only":
+        sys.exit(split_only(sys.argv[2]))
     sys.exit(main())

@@ -273,9 +273,19 @@ struct RolloutArgs {
   int B, T;
   float best_prob;
   int per_episode_seat, eval_mode, agent_in_smem;
+  long long* timers;  // (B, T, kRollMarks) clock64 stamps, or null
 };
 
 constexpr int kResetLanes = 128;
+// phase clock: one thread per game stamps clock64() at the start of each
+// step and at the end of each of its phases (utils/profiling.py
+// phase_split reads the buffer): agent forward, agent sample, agent move,
+// opponent forward, opponent sample, opponent move, reset, emit
+constexpr int kRollMarks = 9;
+
+__device__ __forceinline__ void roll_mark(long long* timers, int k, bool writer) {
+  if (timers != nullptr && writer) timers[k] = clock64();
+}
 
 // mover-frame observation into x (float) and record, legal mask into legal
 __device__ __forceinline__ void observe(const Board& g, const uint8_t* st0, const uint8_t* st1,
@@ -335,14 +345,19 @@ __global__ void rollout_kernel(RolloutArgs a) {
 
   for (int step = 0; step < a.T; ++step) {
     const long long row = static_cast<long long>(step) * B + b;
+    long long* tk = a.timers != nullptr ? a.timers + (static_cast<long long>(b) * a.T + step) * kRollMarks
+                                        : nullptr;
+    roll_mark(tk, 0, t == 0);
 
     // ---- 1. agent forward + sample ------------------------------------
     observe(g, st0, st1, tm, x, legal, a.o_obs + row * F);
     hex::mlp_towers(m, agent_pi, A, agent_vf, 1, x, h0, h1, y);
+    roll_mark(tk, 1, t == 0);
     const float value = y[A];
     float logp;
     const Bits abits{injected ? a.agent_bits + row * A : nullptr, &st};
     const int act_a = hex::masked_sample(y, legal, A, !a.eval_mode, abits, nullptr, &logp, red);
+    roll_mark(tk, 2, t == 0);
 
     // ---- 2. agent move ---------------------------------------------------
     const bool act1 = !done;
@@ -353,14 +368,17 @@ __global__ void rollout_kernel(RolloutArgs a) {
       tm = 1 - tm;
       mc += 1;
     }
+    roll_mark(tk, 3, t == 0);
 
     // ---- 3. opponent reply -----------------------------------------------
     observe(g, st0, st1, tm, x, legal, nullptr);
     const int member = use_best ? a.P1 - 1 : opp_idx;
     hex::mlp_towers(m, a.bank + static_cast<long long>(member) * member_size, A, nullptr, 0, x,
                     h0, h1, y);
+    roll_mark(tk, 4, t == 0);
     const Bits obits{injected ? a.opp_bits + row * A : nullptr, &st};
     const int act_o = hex::masked_sample(y, legal, A, true, obits, nullptr, nullptr, red);
+    roll_mark(tk, 5, t == 0);
     const bool act2 = !done;
     const bool win2 = hex::place_stone(g, st0, st1, lab, tm, hex::to_world(act_o, tm, g.n), act2);
     if (act2) {
@@ -371,6 +389,7 @@ __global__ void rollout_kernel(RolloutArgs a) {
     }
     const float reward = (win1 ? 1.0f : 0.0f) - (win2 ? 1.0f : 0.0f);
     const bool done_out = done;
+    roll_mark(tk, 6, t == 0);
 
     // ---- 4. auto-reset + redraws + opening move (training only) ----------
     int act_f = 0;
@@ -417,6 +436,7 @@ __global__ void rollout_kernel(RolloutArgs a) {
         mc += 1;
       }
     }
+    roll_mark(tk, 7, t == 0);
 
     // ---- emit ---------------------------------------------------------------
     if (t < 8) {
@@ -425,6 +445,7 @@ __global__ void rollout_kernel(RolloutArgs a) {
       a.o_ints[row * 8 + t] = iv[t];
       a.o_flts[row * 8 + t] = fv[t];
     }
+    roll_mark(tk, 8, t == 0);
   }
 
   if (t < L) {
@@ -622,7 +643,7 @@ int hex_rollout(const void* agent, const void* bank, const void* first, int F, i
                 void* o_obs, void* o_ints, void* o_flts, void* o_stones, void* o_labels,
                 void* o_to_move, void* o_done, void* o_empty, void* o_moves, void* o_seat,
                 void* o_use_best, void* o_opp_idx, int B, int n, int L, int T, float best_prob,
-                int per_episode_seat, int eval_mode, void* stream) {
+                int per_episode_seat, int eval_mode, void* timers, void* stream) {
   RolloutArgs a{};
   a.agent = static_cast<const float*>(agent);
   a.bank = static_cast<const float*>(bank);
@@ -661,6 +682,7 @@ int hex_rollout(const void* agent, const void* bank, const void* first, int F, i
   a.best_prob = best_prob;
   a.per_episode_seat = per_episode_seat;
   a.eval_mode = eval_mode;
+  a.timers = static_cast<long long*>(timers);
 
   const int agent_bytes =
       (hex::tower_size(a.m, A) + hex::tower_size(a.m, 1)) * static_cast<int>(sizeof(float));

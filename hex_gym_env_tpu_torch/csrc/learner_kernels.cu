@@ -96,6 +96,11 @@ __global__ void gae_kernel(const float* __restrict__ rewards, const float* __res
 // ===========================================================================
 
 constexpr int kThreads = 256;
+// phase clock: thread 0 of each CTA stamps clock64() at the start of each
+// grad step and at the end of each of its phases (utils/profiling.py
+// phase_split reads the buffer): prologue, forward, loss, backward,
+// sync 1, reduce, sync 2, adam, sync 3
+constexpr int kPpoMarks = 10;
 
 struct PpoArgs {
   const int8_t* obs;   // (n, F)
@@ -111,10 +116,15 @@ struct PpoArgs {
   float* stat_slots;   // (grid, 8)
   float* ss_slots;     // (grid,) per-slice sums of squares
   float* grad;         // (P,) reduced gradient
+  long long* timers;   // (grid, G, kPpoMarks) clock64 stamps, or null
   Mlp mlp;
   int mb, G, R, P;
   float lr, clip_lo, clip_hi, clip, ent_scale, vf_scale, max_norm, eps;
 };
+
+__device__ __forceinline__ void mark(long long* timers, int k) {
+  if (timers != nullptr && threadIdx.x == 0) timers[k] = clock64();
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(hex::kFullMask, v, o);
@@ -375,6 +385,9 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
   float* my_slot = a.partial + static_cast<long long>(c) * P;
 
   for (int step = 0; step < a.G; ++step) {
+    long long* tm = a.timers != nullptr ? a.timers + (static_cast<long long>(c) * a.G + step) * kPpoMarks
+                                        : nullptr;
+    mark(tm, 0);
     const int* rows = a.order != nullptr ? a.idx + static_cast<long long>(a.order[step]) * mb
                                          : a.idx + static_cast<long long>(step) * mb;
     // ---- 1. the minibatch's advantage mean and ddof=1 std ----------------
@@ -393,6 +406,7 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
     const float var = hex::block_sum(acc, red) / static_cast<float>(mb - 1);
     const float denom = sqrtf(var) + 1e-8f;
     if (tid < 5) cta_stats[tid] = 0.0f;
+    mark(tm, 1);
 
     // ---- 2. forward + backward of this CTA's chunks ----------------------
     bool first = true;
@@ -409,16 +423,20 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
       __syncthreads();
       tower_forward(m, R, s, 0, a.p, m.A, s.head, nr);
       tower_forward(m, R, s, 1, a.p + pi_size, 1, s.vhead, nr);
+      mark(tm, 2);
       loss_rows(a, s, nr, mean, denom);
+      mark(tm, 3);
       if (tid < 5)
         for (int r = 0; r < nr; ++r) cta_stats[tid] += s.rstat[r * 5 + tid];
       tower_backward(m, R, s, 0, a.p, m.A, s.head, nr, my_slot, first);
       tower_backward(m, R, s, 1, a.p + pi_size, 1, s.vhead, nr, my_slot + pi_size, first);
       __syncthreads();
+      mark(tm, 4);
       first = false;
     }
     if (tid < 5) a.stat_slots[c * 8 + tid] = cta_stats[tid];
     grid.sync();
+    mark(tm, 5);
 
     // ---- 4. reduce this CTA's slice over all slots, in slot order --------
     // CTA 0: warp k < 8 writes stat k (the first five summed over the slots,
@@ -441,7 +459,9 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
     }
     sq = hex::block_sum(sq, red);
     if (tid == 0) a.ss_slots[c] = sq;
+    mark(tm, 6);
     grid.sync();
+    mark(tm, 7);
 
     // ---- 6-7. global norm, clip scale, Adam on this slice -----------------
     if (warp == 0) {  // the same lane-strided sum and shuffle tree in every CTA
@@ -462,7 +482,9 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
       a.v[j] = vj;
       a.p[j] = a.p[j] - a.lr * (mj / bc1) / (sqrtf(vj / bc2) + a.eps);
     }
+    mark(tm, 8);
     grid.sync();
+    mark(tm, 9);
   }
 }
 
@@ -523,7 +545,7 @@ int hex_ppo(const void* obs, const void* flt, const void* idx, const void* order
             void* p, void* m, void* v, void* stats, void* partial, void* stat_slots, void* ss_slots,
             void* grad, int F, int H, int A, int n_layers, int relu, int mb, int G, float lr,
             float clip, float clip_lo, float clip_hi, float ent_scale, float vf_scale,
-            float max_norm, float eps, int grid, int R, int smem, void* stream) {
+            float max_norm, float eps, int grid, int R, int smem, void* timers, void* stream) {
   PpoArgs a{};
   a.obs = static_cast<const int8_t*>(obs);
   a.flt = static_cast<const float*>(flt);
@@ -538,6 +560,7 @@ int hex_ppo(const void* obs, const void* flt, const void* idx, const void* order
   a.stat_slots = static_cast<float*>(stat_slots);
   a.ss_slots = static_cast<float*>(ss_slots);
   a.grad = static_cast<float*>(grad);
+  a.timers = static_cast<long long*>(timers);
   a.mlp = Mlp{F, H, A, n_layers, relu};
   a.mb = mb;
   a.G = G;

@@ -63,7 +63,7 @@ _ARGTYPES = {
         + [P, P, P, P, U64]  # bits + philox seed
         + [P, P, P]  # obs / ints / flts
         + [P] * 9  # state out
-        + [I, I, I, I, F32, I, I, P]
+        + [I, I, I, I, F32, I, I, P, P]  # ..., eval_mode, timers, stream
     ),
     "hex_random_rollout": (
         [P] * 5 + [U64]  # state in, bits, philox seed
@@ -75,7 +75,7 @@ _ARGTYPES = {
         [P] * 13  # obs, flt, idx, order, bias, p, m, v, stats + 4 scratch
         + [I] * 7  # F, H, A, n_layers, relu, mb, G
         + [F32] * 8  # lr, clip, clip_lo, clip_hi, ent_scale, vf_scale, max_norm, eps
-        + [I, I, I, P]  # grid, R, smem, stream
+        + [I, I, I, P, P]  # grid, R, smem, timers, stream
     ),
     "hex_ppo_plan": [I, I, I, I, I, P],  # launches nothing: no stream
 }

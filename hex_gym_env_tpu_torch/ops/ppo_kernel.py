@@ -42,6 +42,10 @@ from hex_gym_env_tpu_torch.train import ppo
 from hex_gym_env_tpu_torch.utils.config import PPOConfig
 
 N_STATS = 8  # [policy_loss, value_loss, entropy, approx_kl, clip_frac, 0, 0, 0]
+# the kernel's phase clock: a start stamp and one stamp per phase of a grad step
+PPO_PHASES = ("prologue", "forward", "loss", "backward", "sync 1", "reduce", "sync 2", "adam",
+              "sync 3")
+PPO_MARKS = len(PPO_PHASES) + 1
 
 
 def supported_policy(model) -> bool:
@@ -166,7 +170,7 @@ def sweep_twin(p, m, v, d: pk.MlpDims, cfg: PPOConfig, obs, flt, rows, bias):
 # ---------------------------------------------------------------------------
 
 
-def _sweep_cuda(p, m, v, d: pk.MlpDims, cfg: PPOConfig, obs, flt, idx, order, bias):
+def _sweep_cuda(p, m, v, d: pk.MlpDims, cfg: PPOConfig, obs, flt, idx, order, bias, timers=None):
     n, F = obs.shape
     G = bias.shape[0]
     mbs = cfg.minibatch_size
@@ -182,6 +186,8 @@ def _sweep_cuda(p, m, v, d: pk.MlpDims, cfg: PPOConfig, obs, flt, idx, order, bi
     bias = chk("bias", bias, torch.float32, (G, 2))
     p, m, v = (chk(name, t, torch.float32, (S,)).clone() for name, t in (("p", p), ("m", m), ("v", v)))
     grid, R, smem = cuda_lib.ppo_plan(d.F, d.H, d.A, d.n_layers, mbs)
+    if timers is not None:
+        timers = chk("timers", timers, torch.int64, (grid, G, PPO_MARKS))
     dev = obs.device
     stats = torch.empty((G, N_STATS), dtype=torch.float32, device=dev)
     partial = torch.empty((grid, S), dtype=torch.float32, device=dev)
@@ -196,17 +202,21 @@ def _sweep_cuda(p, m, v, d: pk.MlpDims, cfg: PPOConfig, obs, flt, idx, order, bi
         ptr(partial), ptr(stat_slots), ptr(ss_slots), ptr(grad),
         d.F, d.H, d.A, d.n_layers, int(d.relu), mbs, G,
         cfg.learning_rate, c, 1.0 - c, 1.0 + c, cfg.ent_coef / mbs, cfg.vf_coef * 2.0 / mbs,
-        cfg.max_grad_norm, cfg.adam_eps, grid, R, smem,
+        cfg.max_grad_norm, cfg.adam_eps, grid, R, smem, ptr(timers),
     )
     return p, m, v, stats
 
 
-def sweep(pol: pk.PolicyOps, cfg: PPOConfig, p, m, v, obs, flt, idx, bias, order=None):
+def sweep(pol: pk.PolicyOps, cfg: PPOConfig, p, m, v, obs, flt, idx, bias, order=None,
+          timers=None):
     """One sweep on packed vectors: the kernel or the twin by ``pol.impl``
     and the batch's device.  ``idx`` is (G, mb) rows, or with ``order`` the
-    (n,) row permutation whose ``order[g]``-th mb-block is step g's rows."""
+    (n,) row permutation whose ``order[g]``-th mb-block is step g's rows.
+    ``timers``, for the kernel only, is an int64 (grid, G, ``PPO_MARKS``)
+    buffer (grid from ``cuda_lib.ppo_plan``) that receives its phase clock
+    (``utils/profiling.phase_split`` reads it)."""
     if pk.use_kernel(obs, pol.impl):
-        return _sweep_cuda(p, m, v, pol.dims, cfg, obs, flt, idx, order, bias)
+        return _sweep_cuda(p, m, v, pol.dims, cfg, obs, flt, idx, order, bias, timers)
     rows = idx if order is None else idx.reshape(-1, cfg.minibatch_size)[order.long()]
     return sweep_twin(p, m, v, pol.dims, cfg, obs, flt, rows, bias)
 

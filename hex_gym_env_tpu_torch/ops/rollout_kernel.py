@@ -56,6 +56,10 @@ F_VALUE = 1
 F_REWARD = 2
 
 RESET_LANES = 128
+# the kernel's phase clock: a start stamp and one stamp per phase of a step
+ROLLOUT_PHASES = ("agent forward", "agent sample", "agent move", "opponent forward",
+                  "opponent sample", "opponent move", "reset", "emit")
+ROLLOUT_MARKS = len(ROLLOUT_PHASES) + 1
 
 
 class FusedRolloutOut(NamedTuple):
@@ -245,7 +249,7 @@ def fused_rollout_twin(
 
 def _rollout_cuda(
     topo, d, packed_agent, stacked, first_table, state, agent_seat, use_best, opp_idx,
-    n_steps, best_prob, per_episode_seat, bits, generator, eval_mode,
+    n_steps, best_prob, per_episode_seat, bits, generator, eval_mode, timers=None,
 ) -> FusedRolloutOut:
     B, L, F, A = state.batch_size, topo.lanes, topo.num_cells, d.A
     P1 = stacked.shape[0]
@@ -273,6 +277,8 @@ def _rollout_cuda(
     else:
         bits = [None] * 4
         seed = cuda_lib.philox_seed(generator)
+    if timers is not None:
+        timers = chk("timers", timers, torch.int64, (B, n_steps, ROLLOUT_MARKS))
 
     dev = stones.device
     obs = torch.empty((n_steps, B, F), dtype=torch.int8, device=dev)
@@ -298,6 +304,7 @@ def _rollout_cuda(
         p(o.stones), p(o.labels), p(o.to_move), p(o.done), p(o.empty), p(o.move_count),
         p(o_seat), p(o_ub), p(o_oi),
         B, topo.n, L, n_steps, float(best_prob), int(per_episode_seat), int(eval_mode),
+        p(timers),
     )
     return FusedRolloutOut(obs, ints, flts, o, o_seat, o_ub, o_oi)
 
@@ -318,15 +325,18 @@ def fused_rollout(
     bits=None,
     generator: Optional[torch.Generator] = None,
     eval_mode: bool = False,
+    timers: Optional[torch.Tensor] = None,
 ) -> FusedRolloutOut:
     """Run ``n_steps`` selfplay transitions in one pass; see the module
     docstring.  The kernel for a CUDA state under ``pol.impl`` "auto" or
-    "pallas", the twin for a CPU state ("pallas" raises there)."""
+    "pallas", the twin for a CPU state ("pallas" raises there).  ``timers``,
+    for the kernel only, is an int64 (B, n_steps, ``ROLLOUT_MARKS``) buffer
+    that receives its phase clock (``utils/profiling.phase_split``)."""
     if pk.use_kernel(state.stones, pol.impl):
         return _rollout_cuda(
             topo, pol.dims, packed_agent, stacked, first_table, state, agent_seat,
             use_best, opp_idx, n_steps, best_prob, per_episode_seat, bits, generator,
-            eval_mode,
+            eval_mode, timers,
         )
     if bits is None:
         if generator is None:

@@ -22,7 +22,8 @@
    GAE (K5) exactly on a preset rollout, the PPO sweep (K6) for one grad
    step and for the preset's whole 80-step sweep from non-zero Adam moments,
    and for 8 steps on each other MLP tower of the preset grid (deeper,
-   wider, ReLU);
+   wider, ReLU); then prints the phase clocks of K4 and K6 at the preset
+   (``[split this tree]``);
 6. drives the training main path: ``Trainer.fit`` of the preset for three
    PPO iterations (rollout, GAE, sweep, eval + pool update each), with the
    launches of every iteration asserted, a checkpoint after iteration 2 that
@@ -460,7 +461,9 @@ def main() -> int:
     bnd, by = bound_ms(n_bytes, flops)
     kernels["k4_rollout"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=k4_err, bound_ms=bnd,
                                  bound_by=by)
-    print(f"[K4 rollout] kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms for {T} steps x {B} games")
+    plan4 = cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, N, L, B)
+    print(f"[K4 rollout] kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms for {T} steps x {B} games "
+          f"(plan: games per CTA, agent / members in shared memory, bytes {plan4})")
 
     # ---- 2e. K7 random-legal rollout vs its twin, the same bits ---------------------
     gen_c = torch.Generator(device=dev).manual_seed(77)

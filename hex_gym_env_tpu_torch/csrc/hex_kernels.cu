@@ -6,16 +6,18 @@
 // Never with --use_fast_math: tanhf/logf/expf must stay the library ones,
 // or the kernels drift from their PyTorch twins.
 //
-// Every kernel runs one game per CTA: games are independent, so the grid is
-// the batch.  Each entry launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() of its launch.
+// Games are independent: K1-K3 and K7 run one game per CTA, so the grid is
+// the batch; K4 runs several games per CTA, a team of warps each.  Each
+// entry launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() of its launch.
 //
 // Randomness: each kernel takes an optional bits array in the JAX package's
 // interpret-mode layout and maps bits to samples exactly as the JAX kernels
 // do.  Without it, every thread draws from its own Philox stream
-// (curand_init(seed, row * blockDim + thread, 0)); the wrapper draws a
-// fresh seed per launch from the caller's generator, so no two
-// launches share a stream and a restored generator replays the streams.
+// (curand_init(seed, row * blockDim + thread, 0); K4: curand_init(seed,
+// game * 32 + lane, 0)); the wrapper draws a fresh seed per launch from the
+// caller's generator, so no two launches share a stream and a restored
+// generator replays the streams.
 // That is this port's stream deviation, as the TPU hardware PRNG is the JAX
 // package's.
 
@@ -211,31 +213,65 @@ __global__ void bank_kernel(BankArgs a) {
 
 // ===========================================================================
 // K4 — the whole T-step selfplay rollout.  Replaces
-// ops/pallas_rollout.py:_rollout_kernel (entry `fused_rollout`).  One game
-// per CTA, one thread per lane (blockDim = L = 128); the time loop runs
-// inside the CTA (the TPU made time its sequential grid axis).  The game's
-// stones and labels stay in shared memory for all T steps, and so do the
-// agent's weights when they fit (~72 KB at 7x7, H = 64; else they are read
-// from global memory).  The bank member of each move and the first-move
-// table are read from global memory (L2).
-//
+// ops/pallas_rollout.py:_rollout_kernel (entry `fused_rollout`).  The time
+// loop runs inside the kernel (the TPU made time its sequential grid axis).
 // Per step: mover-frame obs and legal mask (a transposed index, no matmul),
 // agent towers + sample (argmax in eval mode), the agent's move, the
 // opponent's reply from its bank member, and, in training mode, the reset
-// of finished games with the seat / best / pool-slot redraws and the
-// opening move from the (P1, A) table.  Eval mode freezes finished games.
+// of finished games with the seat / best / pool-slot redraws and the opening
+// move from the (P1, A) table.  Eval mode freezes finished games.
 //
 // Bound: operations.  Per step and game 2(F*2H + (n_layers-1)*2H*H +
 // H*(A+1)) + 2(F*H + (n_layers-1)*H*H + H*A) FLOP (~56 KFLOP at 7x7,
-// H = 64): 1.8 GFLOP for B = 256, T = 128, 27 us at the fp32 peak.  Bytes:
-// obs (T*B*F) + ints and flts (2*T*B*32) + carry + weights, ~5 MB, 1.5 us.
-// This simple design is latency-bound: one game per CTA leaves most lanes
-// of each warp idle in the MLP layers and synchronises ~30 times per step.
+// H = 64): 1.8 GFLOP for B = 256, T = 128, 0.0274 ms at the fp32 peak.
+// Bytes: obs (T*B*F) + ints and flts (2*T*B*32) + carry + weights, ~5 MB.
+//
+// Where the time went (phase clock, chip runs on an H100 80GB HBM3 at
+// 700 W; one game per 128-thread CTA, 22.2 us per step): the opponent's
+// forward 13.8 us (62%) — its bank member's weights read from L2 in
+// dependent fmaf loops —, the agent's forward 3.9 us (weights in shared
+// memory), the samples 2.2 us and the moves and reset 2.2 us, every one
+// ending in block barriers (~30 per step) with most lanes idle.  So:
+//   - one team of warps per game, several games per CTA, and no block
+//     barrier inside the time loop.  The leader warp plays the game with the
+//     warp-level functions of hex_common.cuh (the sample's reductions are
+//     butterflies with ties to the lowest index; the union reads every label
+//     before a __syncwarp, then writes); the team shares the two forward
+//     passes (team_mlp_towers), synchronised by the game's own named
+//     barrier.  One warp alone left the card's other schedulers idle and its
+//     dependent fmaf chains unhidden: 1.445 ms per preset rollout against
+//     1.178 ms with two warps and 1.265 ms with four;
+//   - a first small kernel of the same entry writes the agent and every bank
+//     member transposed and padded, so a thread's weight row is contiguous:
+//     it loads up to 64 weights and inputs as float4 into registers, all in
+//     flight together, before its fmaf chain (dot_row; loads interleaved
+//     with the chain ran 2.6x slower);
+//   - the agent's image is staged once per launch into shared memory,
+//     shared by the CTA's games;
+//   - each game's bank member is copied into its own slice of shared memory
+//     with 16-byte cp.async when it changes (at the start and after a reset
+//     that redraws it), so the copy overlaps the next step's agent pass and
+//     the opponent's forward reads shared memory; the member changes once
+//     per episode, not per step;
+//   - hex_rollout_plan picks (agent and members in shared memory) where they
+//     fit, else (agent only), else (neither), and the games per CTA that
+//     need the fewest waves of CTAs on the card (the fewest among equals).
+// After (the same clock, two warps per game, several games per CTA): the
+// two forward passes 3.7 and 3.8 us, the samples 2.8 us, the moves 1.5 us,
+// the reset 1.5 us per step, the kernel 1.19 ms per preset rollout against
+// 2.41 ms before.
+// Randomness: the injected-bits path maps bits to samples exactly as the
+// JAX kernel does.  Without bits each lane of a game draws from its own
+// Philox stream, curand_init(seed, game * 32 + lane, 0): keyed by game, not
+// by CTA or thread, so the streams do not depend on how many games share a
+// CTA, and a restored generator (which gives the seed) replays them.  The
+// production stream differs from the one-game-per-CTA kernel's; its
+// distribution does not.
 // ===========================================================================
 
 struct RolloutArgs {
-  const float* agent;  // pi tower then vf tower
-  const float* bank;   // (P1, tower_size)
+  const float* agent;  // transposed image: pi tower then vf tower
+  const float* bank;   // transposed images, P1 x ttower_size(m, A)
   const float* first;  // (P1, A) empty-board logits
   Mlp m;
   int P1;
@@ -272,12 +308,19 @@ struct RolloutArgs {
   Board g;
   int B, T;
   float best_prob;
-  int per_episode_seat, eval_mode, agent_in_smem;
+  int per_episode_seat, eval_mode;
+  // launch shape (hex_rollout): games per CTA, what sits in shared memory,
+  // and the bytes of one game's slice
+  int games_per_cta, agent_in_smem, member_in_smem, game_bytes;
   long long* timers;  // (B, T, kRollMarks) clock64 stamps, or null
 };
 
 constexpr int kResetLanes = 128;
-// phase clock: one thread per game stamps clock64() at the start of each
+// warps per game: a leader warp that plays the game and a helper that
+// shares its forward passes (at the preset 1, 2 and 4 warps per game took
+// 1.445, 1.178 and 1.265 ms per rollout on one H100)
+constexpr int kTeamWarps = 2;
+// phase clock: lane 0 of each game stamps clock64() at the start of each
 // step and at the end of each of its phases (utils/profiling.py
 // phase_split reads the buffer): agent forward, agent sample, agent move,
 // opponent forward, opponent sample, opponent move, reset, emit
@@ -287,10 +330,64 @@ __device__ __forceinline__ void roll_mark(long long* timers, int k, bool writer)
   if (timers != nullptr && writer) timers[k] = clock64();
 }
 
+__host__ __device__ inline int round_up(int n, int k) { return (n + k - 1) / k * k; }
+
+// one game's slice of shared memory: [member image (if staged)] x, h0, h1,
+// y (floats), the member index for the team and 3 spare ints, labels
+// (ints), then stones and the legal mask (bytes)
+__host__ __device__ inline int rollout_game_bytes(const Mlp& m, const Board& g, bool member) {
+  const int floats = (member ? hex::ttower_size(m, m.A) : 0) + hex::round4(m.F) +
+                     4 * hex::round4(m.H) + hex::round4(m.A + 1);
+  return round_up(floats * 4 + 16 + g.L * 4 + 2 * g.L + m.A, 16);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// The transposed, padded towers of team_mlp_towers, one per blockIdx.y: 0
+// the agent's pi tower, 1 its vf tower, 2 + i bank member i; out holds
+// them in that order.
+__global__ void tower_image_kernel(const float* agent, const float* bank, Mlp m, float* out) {
+  const int inst = blockIdx.y, L = m.n_layers, H = m.H;
+  const int head = inst == 1 ? 1 : m.A;
+  const int pi_t = hex::ttower_size(m, m.A);
+  const float* src = inst == 0   ? agent
+                     : inst == 1 ? agent + hex::tower_size(m, m.A)
+                                 : bank + static_cast<long long>(inst - 2) * hex::tower_size(m, m.A);
+  float* dst = out + (inst == 0   ? 0
+                      : inst == 1 ? pi_t
+                                  : pi_t + hex::ttower_size(m, 1) + static_cast<long long>(inst - 2) * pi_t);
+  const int total = hex::ttower_size(m, head);
+  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < total; q += gridDim.x * blockDim.x) {
+    int woff = 0, poff = 0, in = m.F;
+    for (int l = 0; l <= L; ++l) {
+      const int n_out = l == L ? head : H, S = hex::row_stride(in);
+      const int sz = hex::tlayer_size(in, n_out);
+      if (q < woff + sz) {
+        const int e = q - woff;
+        float v = 0.0f;
+        if (e < n_out * S) {
+          const int j = e / S, k = e - (e / S) * S;
+          if (k < in) v = src[poff + k * n_out + j];
+        } else if (e - n_out * S < n_out) {
+          v = src[poff + in * n_out + (e - n_out * S)];
+        }
+        dst[q] = v;
+        break;
+      }
+      woff += sz;
+      poff += (in + 1) * n_out;
+      in = H;
+    }
+  }
+}
+
 // mover-frame observation into x (float) and record, legal mask into legal
-__device__ __forceinline__ void observe(const Board& g, const uint8_t* st0, const uint8_t* st1,
-                                        int tm, float* x, uint8_t* legal, int8_t* record) {
-  for (int i = threadIdx.x; i < g.F; i += blockDim.x) {
+__device__ __forceinline__ void warp_observe(const Board& g, const uint8_t* st0, const uint8_t* st1,
+                                             int tm, float* x, uint8_t* legal, int8_t* record) {
+  for (int i = hex::lane_id(); i < g.F; i += 32) {
     const int w = tm == 0 ? i : (i % g.n) * g.n + i / g.n;
     const int d = static_cast<int>(st1[w]) - static_cast<int>(st0[w]);
     const int ob = tm == 0 ? d : -d;
@@ -298,89 +395,137 @@ __device__ __forceinline__ void observe(const Board& g, const uint8_t* st0, cons
     legal[i] = !(st0[w] | st1[w]);
     if (record != nullptr) record[i] = static_cast<int8_t>(ob);
   }
-  __syncthreads();
+  __syncwarp();
 }
 
 __global__ void rollout_kernel(RolloutArgs a) {
-  extern __shared__ float smem_roll[];
-  __shared__ Scratch red;
-  __shared__ uint32_t reset_words[3];
+  extern __shared__ __align__(16) float smem_roll[];
   const Mlp& m = a.m;
   const Board& g = a.g;
-  const int b = blockIdx.x, t = threadIdx.x, L = g.L, F = g.F, A = m.A, B = a.B;
-  const int agent_size = hex::tower_size(m, A) + hex::tower_size(m, 1);
-  const int member_size = hex::tower_size(m, A);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int tix = wid / kTeamWarps;  // the game's slot in the CTA
+  const bool leader = wid % kTeamWarps == 0;
+  const int b = blockIdx.x * a.games_per_cta + tix;
+  const hex::Team team{static_cast<int>(threadIdx.x) % (32 * kTeamWarps), 32 * kTeamWarps, 1 + tix};
+  const int L = g.L, F = g.F, A = m.A, B = a.B;
+  const int member_size = hex::ttower_size(m, A);
+  const int agent_size = member_size + hex::ttower_size(m, 1);
 
-  float* aw = smem_roll;
-  float* x = a.agent_in_smem ? aw + agent_size : smem_roll;
-  float* h0 = x + F;
-  float* h1 = h0 + 2 * m.H;
-  float* y = h1 + 2 * m.H;
-  int* lab = reinterpret_cast<int*>(y + A + 1);
+  // the agent's image, once per launch, shared by the CTA's games: the
+  // kernel's only block barrier
+  const float* aw = a.agent;
+  if (a.agent_in_smem) {
+    for (int i = threadIdx.x * 4; i < agent_size; i += blockDim.x * 4)
+      *reinterpret_cast<float4*>(smem_roll + i) = __ldcg(reinterpret_cast<const float4*>(a.agent + i));
+    aw = smem_roll;
+  }
+  __syncthreads();
+  if (b >= B) return;
+
+  char* slice = reinterpret_cast<char*>(smem_roll + (a.agent_in_smem ? agent_size : 0)) +
+                static_cast<long long>(tix) * a.game_bytes;
+  float* mw = reinterpret_cast<float*>(slice);
+  float* x = mw + (a.member_in_smem ? member_size : 0);
+  float* h0 = x + hex::round4(F);
+  float* h1 = h0 + 2 * hex::round4(m.H);
+  float* y = h1 + 2 * hex::round4(m.H);
+  int* member_of = reinterpret_cast<int*>(y + hex::round4(A + 1));  // for the team
+  int* lab = member_of + 4;
   uint8_t* st0 = reinterpret_cast<uint8_t*>(lab + L);
   uint8_t* st1 = st0 + L;
   uint8_t* legal = st1 + L;
 
-  if (a.agent_in_smem) {
-    for (int i = t; i < agent_size; i += blockDim.x) aw[i] = a.agent[i];
-  } else {
-    aw = const_cast<float*>(a.agent);
+  const float* agent_pi = aw;
+  const float* agent_vf = aw + member_size;
+  if (!leader) {
+    // a helper warp: its share of the two forward passes of every step, in
+    // step with the leader through the team's barrier
+    for (int step = 0; step < a.T; ++step) {
+      team.sync();  // the agent's observation is in x
+      hex::team_mlp_towers(team, m, agent_pi, A, agent_vf, 1, x, h0, h1, y);
+      team.sync();  // the opponent's observation and member are ready
+      const float* mweights =
+          a.member_in_smem ? mw : a.bank + static_cast<long long>(*member_of) * member_size;
+      hex::team_mlp_towers(team, m, mweights, A, nullptr, 0, x, h0, h1, y);
+    }
+    return;
   }
-  if (t < L) {
+
+  // the leader warp: the game itself
+  for (int t = lane; t < L; t += 32) {
     lab[t] = a.labels[b * L + t];
     st0[t] = a.stones[(2 * b) * L + t];
     st1[t] = a.stones[(2 * b + 1) * L + t];
   }
-  // per-game scalars: one copy per thread, updated identically by all
+  // the float4 reads of x and h0/h1 cover their pads: zero them once
+  for (int i = lane; i < reinterpret_cast<float*>(member_of) - x; i += 32) x[i] = 0.0f;
+  // per-game scalars: one copy per lane, updated identically by all
   int tm = a.to_move[b], empty = a.empty[b], mc = a.moves[b];
   bool done = a.done[b] != 0;
   int seat = a.seat[b], use_best = a.use_best[b] != 0, opp_idx = a.opp_idx[b];
 
   const bool injected = a.agent_bits != nullptr;
   curandStatePhilox4_32_10_t st;
-  if (!injected) philox_init(&st, a.seed);
-  const float* agent_pi = aw;
-  const float* agent_vf = aw + member_size;
-  __syncthreads();
+  if (!injected) curand_init(a.seed, static_cast<unsigned long long>(b) * 32 + lane, 0, &st);
+
+  // the game's bank member into its slice, asynchronously, when it changes
+  int staged = -1;
+  auto stage_member = [&](int member) {
+    if (!a.member_in_smem || member == staged) return;
+    staged = member;
+    const float* src = a.bank + static_cast<long long>(member) * member_size;
+    for (int i = lane * 4; i < member_size; i += 128) cp_async16(mw + i, src + i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage_member(use_best ? a.P1 - 1 : opp_idx);
+  __syncwarp();
 
   for (int step = 0; step < a.T; ++step) {
     const long long row = static_cast<long long>(step) * B + b;
     long long* tk = a.timers != nullptr ? a.timers + (static_cast<long long>(b) * a.T + step) * kRollMarks
                                         : nullptr;
-    roll_mark(tk, 0, t == 0);
+    roll_mark(tk, 0, lane == 0);
 
     // ---- 1. agent forward + sample ------------------------------------
-    observe(g, st0, st1, tm, x, legal, a.o_obs + row * F);
-    hex::mlp_towers(m, agent_pi, A, agent_vf, 1, x, h0, h1, y);
-    roll_mark(tk, 1, t == 0);
+    warp_observe(g, st0, st1, tm, x, legal, a.o_obs + row * F);
+    team.sync();
+    hex::team_mlp_towers(team, m, agent_pi, A, agent_vf, 1, x, h0, h1, y);
+    roll_mark(tk, 1, lane == 0);
     const float value = y[A];
     float logp;
     const Bits abits{injected ? a.agent_bits + row * A : nullptr, &st};
-    const int act_a = hex::masked_sample(y, legal, A, !a.eval_mode, abits, nullptr, &logp, red);
-    roll_mark(tk, 2, t == 0);
+    const int act_a = hex::warp_masked_sample(y, legal, A, !a.eval_mode, abits, &logp);
+    roll_mark(tk, 2, lane == 0);
 
     // ---- 2. agent move ---------------------------------------------------
     const bool act1 = !done;
-    const bool win1 = hex::place_stone(g, st0, st1, lab, tm, hex::to_world(act_a, tm, g.n), act1);
+    const bool win1 = hex::warp_place_stone(g, st0, st1, lab, tm, hex::to_world(act_a, tm, g.n), act1);
     if (act1) {
       empty -= 1;
       done = win1 || empty <= 0;
       tm = 1 - tm;
       mc += 1;
     }
-    roll_mark(tk, 3, t == 0);
+    roll_mark(tk, 3, lane == 0);
 
     // ---- 3. opponent reply -----------------------------------------------
-    observe(g, st0, st1, tm, x, legal, nullptr);
+    warp_observe(g, st0, st1, tm, x, legal, nullptr);
     const int member = use_best ? a.P1 - 1 : opp_idx;
-    hex::mlp_towers(m, a.bank + static_cast<long long>(member) * member_size, A, nullptr, 0, x,
-                    h0, h1, y);
-    roll_mark(tk, 4, t == 0);
+    const float* mweights = mw;
+    if (a.member_in_smem) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");  // the team's barrier publishes it
+    } else {
+      mweights = a.bank + static_cast<long long>(member) * member_size;
+      if (lane == 0) *member_of = member;
+    }
+    team.sync();
+    hex::team_mlp_towers(team, m, mweights, A, nullptr, 0, x, h0, h1, y);
+    roll_mark(tk, 4, lane == 0);
     const Bits obits{injected ? a.opp_bits + row * A : nullptr, &st};
-    const int act_o = hex::masked_sample(y, legal, A, true, obits, nullptr, nullptr, red);
-    roll_mark(tk, 5, t == 0);
+    const int act_o = hex::warp_masked_sample(y, legal, A, true, obits, nullptr);
+    roll_mark(tk, 5, lane == 0);
     const bool act2 = !done;
-    const bool win2 = hex::place_stone(g, st0, st1, lab, tm, hex::to_world(act_o, tm, g.n), act2);
+    const bool win2 = hex::warp_place_stone(g, st0, st1, lab, tm, hex::to_world(act_o, tm, g.n), act2);
     if (act2) {
       empty -= 1;
       done = win2 || empty <= 0;
@@ -389,19 +534,19 @@ __global__ void rollout_kernel(RolloutArgs a) {
     }
     const float reward = (win1 ? 1.0f : 0.0f) - (win2 ? 1.0f : 0.0f);
     const bool done_out = done;
-    roll_mark(tk, 6, t == 0);
+    roll_mark(tk, 6, lane == 0);
 
     // ---- 4. auto-reset + redraws + opening move (training only) ----------
     int act_f = 0;
     if (!a.eval_mode) {
-      if (t < 3) reset_words[t] = injected ? a.reset_bits[row * kResetLanes + t] : curand(&st);
-      __syncthreads();
-      const float u_seat = hex::unit_uniform(reset_words[0]);
-      const float u_best = hex::unit_uniform(reset_words[1]);
-      const float u_idx = hex::unit_uniform(reset_words[2]);
+      uint32_t word = 0;
+      if (lane < 3) word = injected ? a.reset_bits[row * kResetLanes + lane] : curand(&st);
+      const float u_seat = hex::unit_uniform(__shfl_sync(hex::kFullMask, word, 0));
+      const float u_best = hex::unit_uniform(__shfl_sync(hex::kFullMask, word, 1));
+      const float u_idx = hex::unit_uniform(__shfl_sync(hex::kFullMask, word, 2));
       const bool m_reset = done;
       if (m_reset) {
-        if (t < L) {
+        for (int t = lane; t < L; t += 32) {
           lab[t] = t;
           st0[t] = 0;
           st1[t] = 0;
@@ -413,13 +558,14 @@ __global__ void rollout_kernel(RolloutArgs a) {
         if (a.per_episode_seat) seat = u_seat < 0.5f;
         use_best = u_best < a.best_prob;
         opp_idx = min(static_cast<int>(u_idx * static_cast<float>(a.P1 - 1)), a.P1 - 2);
+        stage_member(use_best ? a.P1 - 1 : opp_idx);
       }
-      __syncthreads();
+      __syncwarp();
       // the opener's logits: the member's empty-board row; every cell legal
       const float* first = a.first + static_cast<long long>(use_best ? a.P1 - 1 : opp_idx) * A;
       float bv = -FLT_MAX;
       int bi = INT_MAX;
-      for (int j = t; j < A; j += blockDim.x) {
+      for (int j = lane; j < A; j += 32) {
         const uint32_t w = injected ? a.first_bits[row * A + j] : curand(&st);
         const float score = first[j] + hex::gumbel(w);
         if (hex::better(score, j, bv, bi)) {
@@ -427,33 +573,34 @@ __global__ void rollout_kernel(RolloutArgs a) {
           bi = j;
         }
       }
-      act_f = hex::block_argmax(bv, bi, red);
+      act_f = hex::warp_argmax(bv, bi);
       const bool act3 = m_reset && seat == 1;
-      hex::place_stone(g, st0, st1, lab, tm, act_f, act3);  // seat 0 opens: world frame
+      hex::warp_place_stone(g, st0, st1, lab, tm, act_f, act3);  // seat 0 opens: world frame
       if (act3) {
         empty -= 1;
         tm = 1 - tm;
         mc += 1;
       }
     }
-    roll_mark(tk, 7, t == 0);
+    roll_mark(tk, 7, lane == 0);
 
     // ---- emit ---------------------------------------------------------------
-    if (t < 8) {
+    if (lane < 8) {
       const int iv[8] = {act_a, act_o, act_f, done_out, seat, use_best, opp_idx, 0};
       const float fv[8] = {logp, value, reward, 0.f, 0.f, 0.f, 0.f, 0.f};
-      a.o_ints[row * 8 + t] = iv[t];
-      a.o_flts[row * 8 + t] = fv[t];
+      a.o_ints[row * 8 + lane] = iv[lane];
+      a.o_flts[row * 8 + lane] = fv[lane];
     }
-    roll_mark(tk, 8, t == 0);
+    roll_mark(tk, 8, lane == 0);
   }
 
-  if (t < L) {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  for (int t = lane; t < L; t += 32) {
     a.o_labels[b * L + t] = lab[t];
     a.o_stones[(2 * b) * L + t] = st0[t];
     a.o_stones[(2 * b + 1) * L + t] = st1[t];
   }
-  if (t == 0) {
+  if (lane == 0) {
     a.o_to_move[b] = tm;
     a.o_done[b] = done;
     a.o_empty[b] = empty;
@@ -463,7 +610,6 @@ __global__ void rollout_kernel(RolloutArgs a) {
     a.o_opp_idx[b] = opp_idx;
   }
 }
-
 // ===========================================================================
 // K7 — the fused random-legal rollout.  Replaces
 // ops/pallas_step.py:_random_rollout_kernel (entry `random_rollout`).  T
@@ -634,8 +780,54 @@ int hex_bank(const void* bank, int F, int H, int A, int n_layers, int relu, cons
   return finish_launch();
 }
 
-int hex_rollout(const void* agent, const void* bank, const void* first, int F, int H, int A,
-                int n_layers, int relu, int P1, const void* stones, const void* labels,
+// The rollout's launch shape for one model, board and batch: plan =
+// [games per CTA, agent in shared memory, members in shared memory, shared
+// bytes].  The first of (agent and members in shared memory), (agent only),
+// (neither) that fits one game, then the games per CTA (at most 8) that
+// need the fewest waves of CTAs on the card, the fewest games among equals.
+int hex_rollout_plan(int F, int H, int A, int n_layers, int n, int L, int B, int* plan) {
+  const Mlp m{F, H, A, n_layers, 0};
+  const Board g{n, n * n, L};
+  if (L > 32 * hex::kWarpLanes) return static_cast<int>(cudaErrorInvalidValue);
+  const int limit = 220 * 1024;
+  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(rollout_kernel),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, n_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(e);
+  const int agent_bytes = (hex::ttower_size(m, A) + hex::ttower_size(m, 1)) * 4;
+  const int modes[3][2] = {{1, 1}, {1, 0}, {0, 0}};
+  int best_waves = 0;
+  plan[0] = 0;
+  for (const auto& mode : modes) {
+    const int gb = rollout_game_bytes(m, g, mode[1] != 0);
+    for (int gpc = 1; gpc <= 8; ++gpc) {
+      const int bytes = (mode[0] ? agent_bytes : 0) + gpc * gb;
+      if (bytes > limit) break;
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reinterpret_cast<const void*>(rollout_kernel), 32 * kTeamWarps * gpc, bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (per_sm < 1) break;
+      const int ctas = (B + gpc - 1) / gpc;
+      const int waves = (ctas + per_sm * n_sm - 1) / (per_sm * n_sm);
+      if (plan[0] == 0 || waves < best_waves) {
+        best_waves = waves;
+        plan[0] = gpc;
+        plan[1] = mode[0];
+        plan[2] = mode[1];
+        plan[3] = bytes;
+      }
+    }
+    if (plan[0] != 0) break;
+  }
+  return plan[0] != 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int hex_rollout(const void* agent, const void* bank, const void* first, void* image, int F,
+                int H, int A, int n_layers, int relu, int P1, const void* stones, const void* labels,
                 const void* to_move, const void* done, const void* empty, const void* moves,
                 const void* seat, const void* use_best, const void* opp_idx,
                 const void* agent_bits, const void* opp_bits, const void* first_bits,
@@ -643,12 +835,14 @@ int hex_rollout(const void* agent, const void* bank, const void* first, int F, i
                 void* o_obs, void* o_ints, void* o_flts, void* o_stones, void* o_labels,
                 void* o_to_move, void* o_done, void* o_empty, void* o_moves, void* o_seat,
                 void* o_use_best, void* o_opp_idx, int B, int n, int L, int T, float best_prob,
-                int per_episode_seat, int eval_mode, void* timers, void* stream) {
+                int per_episode_seat, int eval_mode, int games_per_cta, int agent_in_smem,
+                int member_in_smem, void* timers, void* stream) {
   RolloutArgs a{};
-  a.agent = static_cast<const float*>(agent);
-  a.bank = static_cast<const float*>(bank);
-  a.first = static_cast<const float*>(first);
   a.m = Mlp{F, H, A, n_layers, relu};
+  float* img = static_cast<float*>(image);
+  a.agent = img;
+  a.bank = img + hex::ttower_size(a.m, A) + hex::ttower_size(a.m, 1);
+  a.first = static_cast<const float*>(first);
   a.P1 = P1;
   a.stones = static_cast<const uint8_t*>(stones);
   a.labels = static_cast<const int*>(labels);
@@ -683,16 +877,28 @@ int hex_rollout(const void* agent, const void* bank, const void* first, int F, i
   a.per_episode_seat = per_episode_seat;
   a.eval_mode = eval_mode;
   a.timers = static_cast<long long*>(timers);
-
-  const int agent_bytes =
-      (hex::tower_size(a.m, A) + hex::tower_size(a.m, 1)) * static_cast<int>(sizeof(float));
-  const int base = mlp_smem_bytes(a.m) + L * (static_cast<int>(sizeof(int)) + 3);
-  a.agent_in_smem = base + agent_bytes <= 200 * 1024;
-  const int smem = base + (a.agent_in_smem ? agent_bytes : 0);
+  a.games_per_cta = games_per_cta;
+  a.agent_in_smem = agent_in_smem;
+  a.member_in_smem = member_in_smem;
+  a.game_bytes = rollout_game_bytes(a.m, a.g, member_in_smem != 0);
+  const int smem = (agent_in_smem ? (hex::ttower_size(a.m, A) + hex::ttower_size(a.m, 1)) * 4 : 0) +
+                   games_per_cta * a.game_bytes;
   cudaError_t e = allow_smem(reinterpret_cast<const void*>(rollout_kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rollout_kernel<<<B, L, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const int image_blocks = (hex::ttower_size(a.m, A) + 255) / 256;
+  tower_image_kernel<<<dim3(image_blocks, 2 + P1), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(agent), static_cast<const float*>(bank), a.m, img);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  rollout_kernel<<<(B + games_per_cta - 1) / games_per_cta, 32 * kTeamWarps * games_per_cta, smem,
+                   static_cast<cudaStream_t>(stream)>>>(a);
   return finish_launch();
+}
+
+// floats of hex_rollout's image scratch: the agent's two towers and P1 bank
+// members, transposed and padded
+int hex_rollout_image_floats(int F, int H, int A, int n_layers, int P1) {
+  const Mlp m{F, H, A, n_layers, 0};
+  return hex::ttower_size(m, A) * (1 + P1) + hex::ttower_size(m, 1);
 }
 
 int hex_random_rollout(const void* stones, const void* labels, const void* to_move,

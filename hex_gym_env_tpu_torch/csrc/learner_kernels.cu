@@ -14,7 +14,10 @@
 #include "hex_common.cuh"
 
 namespace cg = cooperative_groups;
+using hex::ld4;
 using hex::Mlp;
+using hex::round4;
+using hex::row_stride;
 using hex::Scratch;
 
 namespace {
@@ -64,43 +67,65 @@ __global__ void gae_kernel(const float* __restrict__ rewards, const float* __res
 // ungathered obs (n, F) int8 and flt (n, 4) [action, logp_old, adv, ret];
 // the legal mask is obs == 0 (the PPOBatch invariant).
 //
-// One cooperative persistent launch per sweep: grid = at most the CTAs that
-// fit on the card at once, 256 threads each.  Each grad step runs in phases:
-//   1. every CTA computes the minibatch's advantage mean and ddof=1 std
-//      itself, in one fixed order, so all CTAs hold bitwise the same values;
-//   2. each CTA runs forward and backward for its chunks of R rows and
-//      writes its partial gradient (P floats) and 5 stat partials to its own
-//      slot in global memory;
-//   3. grid sync;
-//   4. each CTA sums one slice of the parameters over all CTA slots in slot
-//      order (no float atomics: runs are bitwise repeatable), with the
-//      slice's sum of squares; CTA 0 sums the stat partials;
-//   5. grid sync;
-//   6. every CTA sums the slices' squares in one fixed order (lane-strided,
-//      then a fixed shuffle tree) -> global norm -> clip scale;
-//   7. Adam on its own slice (bias corrections from the
-//      host's (G, 2) table: 1 - b^t, t = count0 + step + 1);
-//   8. grid sync, so the next step reads the new parameters.
-// Data other CTAs wrote in this launch is read with __ldcg (L2, never a
-// stale L1 line).
-//
 // Bound: operations.  Per row and grad step the forward is
 // 2(F*H + (L-1)*H*H + H*A) + 2(F*H + (L-1)*H*H + H) FLOP and the backward
 // about twice that less the input gradient: ~31 GFLOP per sweep at the 7x7
-// preset (n = 32768, mb = 4096, 10 epochs, H = 64), 0.46 ms at 67 TFLOP/s
-// fp32.  This simple design uses no tensor cores: each layer is a loop of
-// fmaf over weights staged in shared memory (rows padded by one word against
-// bank conflicts), one output per thread, and the grid syncs and the
-// per-step reduction over all CTA slots add a fixed cost per grad step.
-// wgmma/TMA tiles are later work.
+// preset (n = 32768, mb = 4096, 10 epochs, H = 64), 0.457 ms at 67 TFLOP/s
+// fp32 (about 5.7 us per grad step).
+//
+// Where the time went (phase clock, one chip run on an H100 80GB HBM3 at
+// 700 W, 141 us per grad step): forward 48 us and backward 68 us (81%) —
+// every chunk restaged each layer from L2 twice (11 round trips of two
+// barriers) and ran ~17 one-output-per-thread fmaf loops, each ending in a
+// barrier; the advantage statistics, gathered again in every CTA, 12.5 us;
+// loss 6.7 us; the three grid syncs 3.9 us and the slot reduction 3.5 us
+// together only 5%.  So this design cuts the per-chunk serial path and
+// leaves the reduction's shape alone (no clusters):
+//   - prologue, once per sweep: the CTAs split the G steps and compute each
+//     step's advantage (mean, ddof=1 denom) into a (G, 2) scratch with the
+//     old kernel's fixed order (the same values bit for bit), and write a
+//     padded image of the parameters (each layer (n_in + 1) x S, the bias as
+//     row n_in, S = the output width rounded up to 4 floats with S/4 odd, zero
+//     pads); one grid sync;
+//   - weights resident: each grad step copies the whole padded image into
+//     shared memory with 16-byte cp.async.cg (L2, never a stale L1 line)
+//     while the rows are gathered (MLP-default: 77 KB; MLP-deep: 148 KB at
+//     16 rows).  Where it does not fit (MLP-wide-deep), one tower-layer at a
+//     time is staged into two buffers in the order the phases use them, the
+//     next one in flight while the current one is used;
+//   - register-tiled phases: a thread owns a 4 x 4 tile (4 rows x 4 outputs;
+//     for the weight gradient 4 inputs x 4 outputs), reads its weights as
+//     float4 and keeps 16 accumulators; both towers' layers share one phase
+//     and one barrier (resident), and a layer's weight gradient and its input
+//     gradient run in the same phase (the input gradient goes to a separate
+//     ping-pong buffer).  Per chunk: L + 1 forward phases, the loss (eight
+//     lanes per row), L + 1 backward phases;
+//   - the reduction: each CTA sums one slice of the parameters over all CTA
+//     slots in a fixed order (groups of 32 slots, each in slot order, then
+//     the groups in order), so runs are bitwise repeatable without float
+//     atomics; CTA 0 sums the stat partials; then the global norm (one fixed
+//     lane-strided order in every CTA), optax's clip and Adam on the slice,
+//     which also writes the padded image.  Three grid syncs per step, as the
+//     data flow needs: partials -> slices, slices -> norm, Adam -> the next
+//     step's weights.
+// After (the same clock, 512 threads per CTA, 56 us per grad step): the
+// backward 25.5 us, the forward 13.0 us, the prologue (statistics read,
+// rows gathered, weights copied) 6.2 us, the loss 4.2 us, the reduction
+// 4.3 us and the three syncs 6.0 us.  Still fp32 FMA: TF32 tensor-core
+// products would break the tolerances against the twin.  Data other CTAs wrote in this launch is read with
+// __ldcg or cp.async.cg (L2).
 // ===========================================================================
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 // phase clock: thread 0 of each CTA stamps clock64() at the start of each
 // grad step and at the end of each of its phases (utils/profiling.py
 // phase_split reads the buffer): prologue, forward, loss, backward,
-// sync 1, reduce, sync 2, adam, sync 3
+// sync 1, reduce, sync 2, adam, sync 3.  Step 0's prologue includes the
+// sweep's own prologue; with several chunks per CTA the marks inside the
+// chunk loop are the last chunk's.
 constexpr int kPpoMarks = 10;
+constexpr int kMaxBlocks = 18;
+constexpr int kAdvThreads = 256;  // 2 towers x (8 layers + head)
 
 struct PpoArgs {
   const int8_t* obs;   // (n, F)
@@ -116,9 +141,11 @@ struct PpoArgs {
   float* stat_slots;   // (grid, 8)
   float* ss_slots;     // (grid,) per-slice sums of squares
   float* grad;         // (P,) reduced gradient
+  float* adv;          // (G, 2) per-step advantage [mean, denom]
+  float* p_pad;        // (Ppad,) the padded image of p
   long long* timers;   // (grid, G, kPpoMarks) clock64 stamps, or null
   Mlp mlp;
-  int mb, G, R, P;
+  int mb, G, R, P, resident, smem_floats;
   float lr, clip_lo, clip_hi, clip, ent_scale, vf_scale, max_norm, eps;
 };
 
@@ -131,209 +158,318 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(hex::kFullMask, v, o));
-  return v;
-}
 
-// Copies one layer (W (n_in, n_out) then b (n_out), as packed) from global
-// memory into shared memory with a row stride of n_out + 1 (b lands in row
-// n_in).  Each thread keeps kInFlight loads in flight: the copy is bound by
-// L2 latency, not bandwidth.
-constexpr int kInFlight = 8;
+// The packed layers: block k = t * (L + 1) + l of tower t (0 pi, 1 vf) is
+// layer l (l == L the head) as (n_in + 1) x n_out, the bias as row n_in;
+// in the padded image it is (n_in + 1) x row_stride(n_out).
+struct Blocks {
+  int n, P, Ppad, max_padded;
+  int in[kMaxBlocks], out[kMaxBlocks], packed[kMaxBlocks + 1], padded[kMaxBlocks + 1];
+};
 
-__device__ void stage_layer(const float* g, int n_in, int n_out, float* s) {
-  __syncthreads();  // every reader of the previous layer is done
-  const int stride = n_out + 1, total = n_in * n_out + n_out;
-  for (int base = threadIdx.x; base < total; base += kInFlight * blockDim.x) {
-    float vals[kInFlight];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int o = base + u * blockDim.x;
-      vals[u] = o < total ? __ldcg(g + o) : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int o = base + u * blockDim.x;
-      if (o < total) {
-        const int i = o / n_out;
-        s[i * stride + (o - i * n_out)] = vals[u];
-      }
+__host__ __device__ inline void blocks_of(const Mlp& m, Blocks& b) {
+  const int L = m.n_layers;
+  b.n = 2 * (L + 1);
+  int po = 0, qo = 0, mx = 0;
+  for (int t = 0; t < 2; ++t) {
+    for (int l = 0; l <= L; ++l) {
+      const int k = t * (L + 1) + l;
+      const int n_in = l == 0 ? m.F : m.H;
+      const int n_out = l < L ? m.H : (t == 0 ? m.A : 1);
+      const int sz = (n_in + 1) * row_stride(n_out);
+      b.in[k] = n_in;
+      b.out[k] = n_out;
+      b.packed[k] = po;
+      b.padded[k] = qo;
+      po += (n_in + 1) * n_out;
+      qo += sz;
+      mx = sz > mx ? sz : mx;
     }
   }
-  __syncthreads();
+  b.packed[b.n] = po;
+  b.padded[b.n] = qo;
+  b.P = po;
+  b.Ppad = qo;
+  b.max_padded = mx;
 }
 
-// out[r][j] = act(b[j] + sum_i in[r][i] W[i][j]) for nr rows; act: 0 tanh,
-// 1 relu, -1 none.  Ends with a sync.
-__device__ void dense_rows(const float* in, int n_in, const float* s, int n_out, int nr, float* out,
-                           int act) {
-  const int stride = n_out + 1;
-  const float* b = s + n_in * stride;
-  for (int o = threadIdx.x; o < nr * n_out; o += blockDim.x) {
-    const int r = o / n_out, j = o - r * n_out;
-    const float* x = in + r * n_in;
-    float acc = 0.0f;
-    for (int i = 0; i < n_in; ++i) acc = fmaf(x[i], s[i * stride + j], acc);
-    acc += b[j];
-    out[o] = act < 0 ? acc : hex::activate(acc, act);
-  }
-  __syncthreads();
+// packed index j -> its place in the padded image
+__device__ __forceinline__ int padded_index(const Blocks& b, int j) {
+  int k = 0;
+  while (j >= b.packed[k + 1]) ++k;
+  const int o = j - b.packed[k], n_out = b.out[k];
+  const int i = o / n_out;
+  return b.padded[k] + i * row_stride(n_out) + (o - i * n_out);
 }
 
-// h[r][i] <- act'(h[r][i]) * sum_j d[r][j] W[i][j]: the upstream gradient
-// of a layer's pre-activation, written over that layer's output.  Ends with
-// a sync.
-__device__ void back_rows(const float* d, int n_out, const float* s, int n_in, int nr, float* h,
-                          int relu) {
-  const int stride = n_out + 1;
-  for (int o = threadIdx.x; o < nr * n_in; o += blockDim.x) {
-    const int r = o / n_in, i = o - r * n_in;
-    const float* dr = d + r * n_out;
-    const float* w = s + i * stride;
-    float acc = 0.0f;
-    for (int j = 0; j < n_out; ++j) acc = fmaf(dr[j], w[j], acc);
-    const float hv = h[o];
-    h[o] = relu ? (hv > 0.0f ? acc : 0.0f) : acc * (1.0f - hv * hv);
-  }
-  __syncthreads();
-}
-
-// slot[W (n_in, n_out), b (n_out)] (+)= [in^T d, sum_r d] over nr rows, rows
-// summed in order.  Each element has one owner thread across chunks.
-__device__ void grad_rows(const float* in, int n_in, const float* d, int n_out, int nr, float* slot,
-                          bool first) {
-  const int nw = n_in * n_out;
-  for (int o = threadIdx.x; o < nw + n_out; o += blockDim.x) {
-    float acc = 0.0f;
-    if (o < nw) {
-      const int i = o / n_out, j = o - i * n_out;
-      for (int r = 0; r < nr; ++r) acc = fmaf(in[r * n_in + i], d[r * n_out + j], acc);
-    } else {
-      const int j = o - nw;
-      for (int r = 0; r < nr; ++r) acc += d[r * n_out + j];
-    }
-    slot[o] = first ? acc : slot[o] + acc;
-  }
-}
-
-struct Layout {
-  float* xs;     // (R, F) input boards
-  float* acts;   // (2 towers, L, R, H) layer outputs, then their gradients
-  float* head;   // (R, A) logits, then dlogits
-  float* vhead;  // (R,) value, then dvalue
+// shared-memory carve (floats; every segment a multiple of 4 floats)
+struct Smem {
+  float* w;      // resident: the padded image; staged: two stage buffers
+  float* xs;     // (R, sF) input boards
+  float* h;      // (2 towers, L, R, sH) hidden outputs
+  float* D;      // (2 towers, 2, R, sH) ping-pong pre-activation gradients
+  float* head;   // (R, sA) logits, then dlogits
+  float* vhead;  // (R, 4) value, then dvalue
   float* rows;   // (R, 4) [action, logp_old, adv, ret]
-  float* rstat;  // (R, 5) per-row stat terms
-  float* stage;  // one staged layer
+  float* rstat;  // (R, 8) per-row stat terms (5 used)
   int* ridx;     // (R,) the chunk's batch rows
 };
 
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int ppo_smem_floats(const Mlp& m, const Blocks& b, int R, int resident) {
+  const int sF = row_stride(m.F), sH = row_stride(m.H), sA = row_stride(m.A);
+  const int w = resident ? b.Ppad : 2 * b.max_padded;
+  return w + R * sF + 2 * m.n_layers * R * sH + 4 * R * sH + R * sA + R * 4 + R * 4 + R * 8 + R;
+}
 
-__host__ __device__ inline int stage_floats(const Mlp& m) {
-  int s = m.F * (m.H + 1) + m.H;
-  s = imax(s, m.H * (m.H + 1) + m.H);
-  s = imax(s, m.H * (m.A + 1) + m.A);
+__device__ Smem carve(float* base, const Mlp& m, const Blocks& b, int R, int resident) {
+  const int sF = row_stride(m.F), sH = row_stride(m.H), sA = row_stride(m.A);
+  Smem s;
+  s.w = base;
+  s.xs = s.w + (resident ? b.Ppad : 2 * b.max_padded);
+  s.h = s.xs + R * sF;
+  s.D = s.h + 2 * m.n_layers * R * sH;
+  s.head = s.D + 4 * R * sH;
+  s.vhead = s.head + R * sA;
+  s.rows = s.vhead + R * 4;
+  s.rstat = s.rows + R * 4;
+  s.ridx = reinterpret_cast<int*>(s.rstat + R * 8);
   return s;
 }
 
-__host__ __device__ inline int ppo_smem_floats(const Mlp& m, int R) {
-  // floats, then R ints of row indices
-  return R * m.F + 2 * m.n_layers * R * m.H + R * m.A + R + R * 4 + R * 5 + stage_floats(m) + R;
+// 16-byte asynchronous copies global -> shared through L2 (.cg)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ Layout carve(float* base, const Mlp& m, int R) {
-  Layout l;
-  l.xs = base;
-  l.acts = l.xs + R * m.F;
-  l.head = l.acts + 2 * m.n_layers * R * m.H;
-  l.vhead = l.head + R * m.A;
-  l.rows = l.vhead + R;
-  l.rstat = l.rows + R * 4;
-  l.stage = l.rstat + R * 5;
-  l.ridx = reinterpret_cast<int*>(l.stage + stage_floats(m));
-  return l;
+// every thread issues its share of a copy of n floats (n % 4 == 0, both ends
+// 16-byte aligned), then commits one group
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  for (int q = threadIdx.x * 4; q < n; q += blockDim.x * 4) cp_async16(dst + q, src + q);
+  cp_async_commit();
 }
 
+// ---- the register-tiled phases ----------------------------------------------
 
-// the (R, H) output buffer of tower t's layer l
-__device__ __forceinline__ float* layer_out(const Layout& s, const Mlp& m, int R, int t, int l) {
-  return s.acts + (t * m.n_layers + l) * R * m.H;
-}
+// out[r][j] = act(b[j] + sum_k in[r][k] W[k][j]): a 4-row x 4-column tile
+struct Dense {
+  const float* in;  // (rows, sin)
+  const float* w;   // padded block, row stride S, bias row n_in
+  float* out;       // (rows, sout)
+  int sin, n_in, S, n_out, sout, act;  // act: 0 tanh, 1 relu, -1 none
+};
 
-// Forward of tower t (packed weights w, head width out) over the chunk's nr
-// rows: layer outputs into acts, head outputs into y.
-__device__ void tower_forward(const Mlp& m, int R, const Layout& s, int t, const float* w, int out,
-                              float* y, int nr) {
-  const float* in = s.xs;
-  int n_in = m.F;
-  for (int l = 0; l < m.n_layers; ++l) {
-    stage_layer(w, n_in, m.H, s.stage);
-    float* h = layer_out(s, m, R, t, l);
-    dense_rows(in, n_in, s.stage, m.H, nr, h, m.relu);
-    w += n_in * m.H + m.H;
-    in = h;
-    n_in = m.H;
+__device__ __forceinline__ void dense_tile(const Dense& d, int r0, int c0) {
+  float acc[4][4] = {};
+  const float* x = d.in + r0 * d.sin;
+  const float* w = d.w + c0;
+#pragma unroll 4
+  for (int k = 0; k < d.n_in; ++k) {
+    const float4 wk = ld4(w + k * d.S);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float xv = x[i * d.sin + k];
+      acc[i][0] = fmaf(xv, wk.x, acc[i][0]);
+      acc[i][1] = fmaf(xv, wk.y, acc[i][1]);
+      acc[i][2] = fmaf(xv, wk.z, acc[i][2]);
+      acc[i][3] = fmaf(xv, wk.w, acc[i][3]);
+    }
   }
-  stage_layer(w, m.H, out, s.stage);
-  dense_rows(in, m.H, s.stage, out, nr, y, -1);
+  const float4 b = ld4(w + d.n_in * d.S);
+  const float bb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float z = acc[i][e] + bb[e];
+      o[e] = d.act < 0 ? z : hex::activate(z, d.act);
+    }
+    *reinterpret_cast<float4*>(d.out + (r0 + i) * d.sout + c0) = make_float4(o[0], o[1], o[2], o[3]);
+  }
 }
 
-// Backward of tower t from the head gradient d (nr, out): gradients into
-// slot (the tower's packed layout), activation gradients over acts.
-__device__ void tower_backward(const Mlp& m, int R, const Layout& s, int t, const float* w, int out,
-                               const float* d, int nr, float* slot, bool first) {
-  // offsets of each layer in the packed tower
-  int off[9];
-  int n_in = m.F, o = 0;
-  for (int l = 0; l < m.n_layers; ++l) {
-    off[l] = o;
-    o += n_in * m.H + m.H;
-    n_in = m.H;
+// slot[W (n_in, n_out), b] (+)= [in^T d, sum_r d] over nr rows, rows summed
+// in order: a 4-input x 4-output tile (input n_in is the bias, input 1)
+struct Grad {
+  const float* in;  // (rows, sin)
+  const float* d;   // (rows, sd), sd % 4 == 0, pads zero
+  float* slot;      // the block's packed place in the CTA's slot
+  int sin, n_in, sd, n_out;
+};
+
+__device__ __forceinline__ void grad_tile(const Grad& g, int i0, int j0, int nr, bool first) {
+  float acc[4][4] = {};
+#pragma unroll 2
+  for (int r = 0; r < nr; ++r) {
+    const float4 dv = ld4(g.d + r * g.sd + j0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = i0 + q;
+      const float xv = i < g.n_in ? g.in[r * g.sin + i] : 1.0f;
+      acc[q][0] = fmaf(xv, dv.x, acc[q][0]);
+      acc[q][1] = fmaf(xv, dv.y, acc[q][1]);
+      acc[q][2] = fmaf(xv, dv.z, acc[q][2]);
+      acc[q][3] = fmaf(xv, dv.w, acc[q][3]);
+    }
   }
-  off[m.n_layers] = o;
-  const int L = m.n_layers;
-  float* top = layer_out(s, m, R, t, L - 1);
-  grad_rows(top, m.H, d, out, nr, slot + off[L], first);
-  stage_layer(w + off[L], m.H, out, s.stage);
-  back_rows(d, out, s.stage, m.H, nr, top, m.relu);
-  for (int l = L - 1; l >= 0; --l) {
-    const float* dz = layer_out(s, m, R, t, l);
-    const float* in = l == 0 ? s.xs : layer_out(s, m, R, t, l - 1);
-    grad_rows(in, l == 0 ? m.F : m.H, dz, m.H, nr, slot + off[l], first);
-    if (l > 0) {
-      stage_layer(w + off[l], m.H, m.H, s.stage);
-      back_rows(dz, m.H, s.stage, m.H, nr, layer_out(s, m, R, t, l - 1), m.relu);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = i0 + q;
+    if (i > g.n_in) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + e;
+      if (j < g.n_out) {
+        float* o = g.slot + i * g.n_out + j;
+        *o = first ? acc[q][e] : *o + acc[q][e];
+      }
     }
   }
 }
 
-// The masked-PPO loss and its head gradients for the chunk's rows, one warp
-// per row: head (logits) becomes dlogits, vhead (value) becomes dvalue, and
-// rstat gets [min(unclipped, clipped), err^2, entropy, kl term, clipped].
-__device__ void loss_rows(const PpoArgs& a, const Layout& s, int nr, float mean, float denom) {
-  const int A = a.mlp.A, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < nr; r += n_warps) {
-    float* lg = s.head + r * A;
-    const float* x = s.xs + r * a.mlp.F;
+// out[r][i] = act'(h[r][i]) * sum_j d[r][j] W[i][j]: 4 rows x 4 inputs
+// i0, i0 + C, i0 + 2C, i0 + 3C (C = ceil(n_in / 4)), so that neighbouring
+// threads read neighbouring weight rows
+struct Back {
+  const float* d;  // (rows, sd), pads zero
+  const float* w;  // padded block, row stride S (pads zero)
+  const float* h;  // (rows, sh) the layer's input activations
+  float* out;      // (rows, so)
+  int sd, n4, S, n_in, sh, so, relu;
+};
+
+__device__ __forceinline__ void back_tile(const Back& b, int r0, int i0) {
+  const int C = (b.n_in + 3) >> 2;
+  const float* wq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) wq[q] = b.w + min(i0 + q * C, b.n_in - 1) * b.S;
+  float acc[4][4] = {};
+  for (int j = 0; j < b.n4; j += 4) {
+    float4 dv[4], wv[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) dv[p] = ld4(b.d + (r0 + p) * b.sd + j);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) wv[q] = ld4(wq[q] + j);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float a = acc[p][q];
+        a = fmaf(dv[p].x, wv[q].x, a);
+        a = fmaf(dv[p].y, wv[q].y, a);
+        a = fmaf(dv[p].z, wv[q].z, a);
+        acc[p][q] = fmaf(dv[p].w, wv[q].w, a);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = i0 + q * C;
+    if (i >= b.n_in) break;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float hv = b.h[(r0 + p) * b.sh + i];
+      b.out[(r0 + p) * b.so + i] =
+          b.relu ? (hv > 0.0f ? acc[p][q] : 0.0f) : acc[p][q] * (1.0f - hv * hv);
+    }
+  }
+}
+
+template <typename Job, typename Tile>
+__device__ __forceinline__ void job_tiles(const Job& job, int n, int& t, Tile tile) {
+  for (; t < n; t += blockDim.x) tile(job, t);
+  t -= n;
+}
+
+// one forward phase: one or two dense jobs over the chunk's rows (the
+// threads walk the jobs' tiles as one index space); ends with a sync
+__device__ __forceinline__ void fwd_phase(const Dense& j0, const Dense& j1, int nj, int nr) {
+  const int rgs = (nr + 3) >> 2;
+  auto tile = [](const Dense& d, int u) {
+    const int cg = (d.n_out + 3) >> 2;
+    const int rg = u / cg;
+    dense_tile(d, rg * 4, (u - rg * cg) * 4);
+  };
+  int t = threadIdx.x;
+  job_tiles(j0, rgs * ((j0.n_out + 3) >> 2), t, tile);
+  if (nj > 1) job_tiles(j1, rgs * ((j1.n_out + 3) >> 2), t, tile);
+  __syncthreads();
+}
+
+// one backward phase: ng weight-gradient jobs and nb input-gradient jobs
+// (the threads walk all their tiles as one index space); ends with a sync
+__device__ __forceinline__ void bwd_phase(const Grad& g0, const Grad& g1, int ng, const Back& b0,
+                                          const Back& b1, int nb, int nr, bool first) {
+  auto gtile = [nr, first](const Grad& g, int u) {
+    const int jg = (g.n_out + 3) >> 2;
+    const int ig = u / jg;
+    grad_tile(g, ig * 4, (u - ig * jg) * 4, nr, first);
+  };
+  auto btile = [](const Back& b, int u) {
+    const int C = (b.n_in + 3) >> 2;
+    const int rg = u / C;
+    back_tile(b, rg * 4, u - rg * C);
+  };
+  const int rgs = (nr + 3) >> 2;
+  int t = threadIdx.x;
+  job_tiles(g0, ((g0.n_in + 4) >> 2) * ((g0.n_out + 3) >> 2), t, gtile);
+  if (ng > 1) job_tiles(g1, ((g1.n_in + 4) >> 2) * ((g1.n_out + 3) >> 2), t, gtile);
+  if (nb > 0) job_tiles(b0, rgs * ((b0.n_in + 3) >> 2), t, btile);
+  if (nb > 1) job_tiles(b1, rgs * ((b1.n_in + 3) >> 2), t, btile);
+  __syncthreads();
+}
+
+// The masked-PPO loss and its head gradients for the chunk's rows, eight
+// lanes per row (shuffles within the lane group): head (logits) becomes
+// dlogits, vhead (value) becomes dvalue, and rstat gets [min(unclipped,
+// clipped), err^2, entropy, kl term, clipped].
+constexpr int kLossLanes = 8;
+
+__device__ __forceinline__ float group_sum(float v) {
+  for (int o = kLossLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(hex::kFullMask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float group_max(float v) {
+  for (int o = kLossLanes / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(hex::kFullMask, v, o));
+  return v;
+}
+
+__device__ void loss_rows(const PpoArgs& a, const Smem& s, int nr, float mean, float denom) {
+  const int A = a.mlp.A, lane = threadIdx.x & (kLossLanes - 1);
+  const int sF = row_stride(a.mlp.F), sA = row_stride(A);
+  const int n_groups = blockDim.x / kLossLanes;
+  // every lane of a warp runs the same trip count, so the shuffles stay full
+  const int n_rounds = (nr + n_groups - 1) / n_groups;
+  for (int k = 0; k < n_rounds; ++k) {
+    const int r0 = k * n_groups + threadIdx.x / kLossLanes;
+    const bool live = r0 < nr;
+    const int r = live ? r0 : nr - 1;
+    float* lg = s.head + r * sA;
+    const float* x = s.xs + r * sF;
     const float* row = s.rows + r * 4;
     const int act = static_cast<int>(row[0]);
     float mx = -FLT_MAX;
-    for (int j = lane; j < A; j += 32) mx = fmaxf(mx, x[j] == 0.0f ? lg[j] : hex::kMaskedLogit);
-    mx = warp_max(mx);
+    for (int j = lane; j < A; j += kLossLanes) mx = fmaxf(mx, x[j] == 0.0f ? lg[j] : hex::kMaskedLogit);
+    mx = group_max(mx);
     float se = 0.0f;
-    for (int j = lane; j < A; j += 32) se += expf((x[j] == 0.0f ? lg[j] : hex::kMaskedLogit) - mx);
-    se = warp_sum(se);
+    for (int j = lane; j < A; j += kLossLanes) se += expf((x[j] == 0.0f ? lg[j] : hex::kMaskedLogit) - mx);
+    se = group_sum(se);
     const float lse = logf(se);
     const float lp_a = ((x[act] == 0.0f ? lg[act] : hex::kMaskedLogit) - mx) - lse;
     float plogp = 0.0f;
-    for (int j = lane; j < A; j += 32) {
+    for (int j = lane; j < A; j += kLossLanes) {
       if (x[j] != 0.0f) continue;
       const float z = lg[j] - mx;
       plogp += (expf(z) / se) * (z - lse);
     }
-    const float ent = -warp_sum(plogp);
+    const float ent = -group_sum(plogp);
 
     const float adv = (row[2] - mean) / denom;
     const float log_ratio = lp_a - row[1];
@@ -344,93 +480,211 @@ __device__ void loss_rows(const PpoArgs& a, const Layout& s, int nr, float mean,
     const bool active = unclipped <= clipped || in_bounds;
     const float dlp = active ? -(adv * ratio) / static_cast<float>(a.mb) : 0.0f;
     __syncwarp();  // every lane has read lg before any lane overwrites it
-    for (int j = lane; j < A; j += 32) {
-      float dj = 0.0f;
-      if (x[j] == 0.0f) {
-        const float z = lg[j] - mx;
-        const float p = expf(z) / se;
-        dj = dlp * ((j == act ? 1.0f : 0.0f) - p);
-        if (a.ent_scale != 0.0f) dj += a.ent_scale * p * ((z - lse) + ent);
+    if (live) {
+      for (int j = lane; j < sA; j += kLossLanes) {
+        float dj = 0.0f;
+        if (j < A && x[j] == 0.0f) {
+          const float z = lg[j] - mx;
+          const float p = expf(z) / se;
+          dj = dlp * ((j == act ? 1.0f : 0.0f) - p);
+          if (a.ent_scale != 0.0f) dj += a.ent_scale * p * ((z - lse) + ent);
+        }
+        lg[j] = dj;  // pads too: the backward reads them as float4
       }
-      lg[j] = dj;
+      if (lane == 0) {
+        const float err = s.vhead[r * 4] - row[3];
+        s.vhead[r * 4] = a.vf_scale * err;
+        float* st = s.rstat + r * 5;
+        st[0] = fminf(unclipped, clipped);
+        st[1] = err * err;
+        st[2] = ent;
+        st[3] = (ratio - 1.0f) - log_ratio;
+        st[4] = fabsf(ratio - 1.0f) > a.clip ? 1.0f : 0.0f;
+      }
     }
-    if (lane == 0) {
-      const float err = s.vhead[r] - row[3];
-      s.vhead[r] = a.vf_scale * err;
-      float* st = s.rstat + r * 5;
-      st[0] = fminf(unclipped, clipped);
-      st[1] = err * err;
-      st[2] = ent;
-      st[3] = (ratio - 1.0f) - log_ratio;
-      st[4] = fabsf(ratio - 1.0f) > a.clip ? 1.0f : 0.0f;
-    }
+    __syncwarp();
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
-  extern __shared__ float smem_ppo[];
+// staged mode: the tower-layers in the order the phases use them — forward
+// (t, l) for l = 0..L, t = 0, 1; then backward (t, l) for l = L..1
+__device__ __forceinline__ int stage_block(int item, int L) {
+  const int nf = 2 * (L + 1);
+  if (item < nf) return (item & 1) * (L + 1) + (item >> 1);
+  const int u = item - nf;
+  return (u & 1) * (L + 1) + (L - (u >> 1));
+}
+
+__device__ __forceinline__ void stage_issue(const PpoArgs& a, const Blocks& bl, float* buf, int item) {
+  const int k = stage_block(item, a.mlp.n_layers);
+  copy_async(buf + (item & 1) * bl.max_padded, a.p_pad + bl.padded[k],
+             (bl.in[k] + 1) * row_stride(bl.out[k]));
+}
+
+// staged mode: start the copy of the item after this one (or an empty
+// group), wait for this one's, and return its buffer
+__device__ __forceinline__ const float* stage_next(const PpoArgs& a, const Blocks& bl, float* buf,
+                                                   int& item) {
+  const int n_items = 4 * a.mlp.n_layers + 2;
+  if (item + 1 < n_items) stage_issue(a, bl, buf, item + 1);
+  else cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  return buf + ((item++) & 1) * bl.max_padded;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ppo_kernel(PpoArgs a) {
+  extern __shared__ __align__(16) float smem_ppo[];
   __shared__ Scratch red;
   __shared__ float cta_stats[5];
   __shared__ float total_sq;
+  __shared__ Blocks bl;
   cg::grid_group grid = cg::this_grid();
   const Mlp& m = a.mlp;
   const int tid = threadIdx.x, c = blockIdx.x, n_cta = gridDim.x;
-  const int mb = a.mb, R = a.R, P = a.P;
-  const Layout s = carve(smem_ppo, m, R);
-  const int pi_size = hex::tower_size(m, m.A);
+  const int mb = a.mb, R = a.R, P = a.P, L = m.n_layers;
+  const bool resident = a.resident != 0;
+  const int sF = row_stride(m.F), sH = row_stride(m.H), sA = row_stride(m.A);
+  if (tid == 0) blocks_of(m, bl);
+  __syncthreads();
+  const Smem s = carve(smem_ppo, m, bl, R, a.resident);
   // this CTA's slice of the parameters for the reduction and Adam
   const int lo = static_cast<int>(static_cast<long long>(c) * P / n_cta);
   const int hi = static_cast<int>(static_cast<long long>(c + 1) * P / n_cta);
   float* my_slot = a.partial + static_cast<long long>(c) * P;
+  long long* tim0 = a.timers != nullptr ? a.timers + static_cast<long long>(c) * a.G * kPpoMarks : nullptr;
+  mark(tim0, 0);
 
-  for (int step = 0; step < a.G; ++step) {
-    long long* tm = a.timers != nullptr ? a.timers + (static_cast<long long>(c) * a.G + step) * kPpoMarks
-                                        : nullptr;
-    mark(tm, 0);
-    const int* rows = a.order != nullptr ? a.idx + static_cast<long long>(a.order[step]) * mb
-                                         : a.idx + static_cast<long long>(step) * mb;
-    // ---- 1. the minibatch's advantage mean and ddof=1 std ----------------
-    // (unrolled loops below keep their sums in order; the unroll only lets
-    // the independent gathers be in flight together)
+  // ---- sweep prologue: per-step advantage statistics, the padded image ----
+  for (int g = c; g < a.G; g += n_cta) {
+    const int* rows = a.order != nullptr ? a.idx + static_cast<long long>(a.order[g]) * mb
+                                         : a.idx + static_cast<long long>(g) * mb;
+    // (unrolled loops keep their sums in order; the unroll only lets the
+    // independent gathers be in flight together)
+    // the first kAdvThreads threads stride the rows, the rest add 0.0f: the
+    // order of the 256-thread kernel this one replaced, so the same bits
     float acc = 0.0f;
 #pragma unroll 8
-    for (int k = tid; k < mb; k += blockDim.x) acc += a.flt[rows[k] * 4 + 2];
+    for (int k = tid; k < mb && tid < kAdvThreads; k += kAdvThreads) acc += a.flt[rows[k] * 4 + 2];
     const float mean = hex::block_sum(acc, red) / static_cast<float>(mb);
     acc = 0.0f;
 #pragma unroll 8
-    for (int k = tid; k < mb; k += blockDim.x) {
+    for (int k = tid; k < mb && tid < kAdvThreads; k += kAdvThreads) {
       const float dv = a.flt[rows[k] * 4 + 2] - mean;
       acc += dv * dv;
     }
     const float var = hex::block_sum(acc, red) / static_cast<float>(mb - 1);
-    const float denom = sqrtf(var) + 1e-8f;
-    if (tid < 5) cta_stats[tid] = 0.0f;
-    mark(tm, 1);
+    if (tid == 0) {
+      a.adv[2 * g] = mean;
+      a.adv[2 * g + 1] = sqrtf(var) + 1e-8f;
+    }
+  }
+  for (int q = c * blockDim.x + tid; q < bl.Ppad; q += n_cta * blockDim.x) {
+    int k = 0;
+    while (q >= bl.padded[k + 1]) ++k;
+    const int S = row_stride(bl.out[k]), o = q - bl.padded[k];
+    const int i = o / S, j = o - i * S;
+    a.p_pad[q] = j < bl.out[k] ? a.p[bl.packed[k] + i * bl.out[k] + j] : 0.0f;
+  }
+  grid.sync();
 
-    // ---- 2. forward + backward of this CTA's chunks ----------------------
+  for (int step = 0; step < a.G; ++step) {
+    long long* tm = tim0 != nullptr ? tim0 + static_cast<long long>(step) * kPpoMarks : nullptr;
+    if (step > 0) mark(tm, 0);
+    const int* rows = a.order != nullptr ? a.idx + static_cast<long long>(a.order[step]) * mb
+                                         : a.idx + static_cast<long long>(step) * mb;
+    if (resident) copy_async(s.w, a.p_pad, bl.Ppad);
+    const float mean = __ldcg(a.adv + 2 * step), denom = __ldcg(a.adv + 2 * step + 1);
+    if (tid < 5) cta_stats[tid] = 0.0f;
+
     bool first = true;
     for (int q0 = c * R; q0 < mb; q0 += n_cta * R) {
       const int nr = min(R, mb - q0);
+      int item = 0;
+      if (!resident) stage_issue(a, bl, s.w, 0);
       for (int r = tid; r < nr; r += blockDim.x) s.ridx[r] = rows[q0 + r];
       __syncthreads();
 #pragma unroll 4
       for (int o = tid; o < nr * m.F; o += blockDim.x) {
         const int r = o / m.F, i = o - r * m.F;
-        s.xs[o] = static_cast<float>(a.obs[static_cast<long long>(s.ridx[r]) * m.F + i]);
+        s.xs[r * sF + i] = static_cast<float>(a.obs[static_cast<long long>(s.ridx[r]) * m.F + i]);
       }
       for (int o = tid; o < nr * 4; o += blockDim.x) s.rows[o] = a.flt[s.ridx[o / 4] * 4 + (o & 3)];
+      if (resident) cp_async_wait<0>();
       __syncthreads();
-      tower_forward(m, R, s, 0, a.p, m.A, s.head, nr);
-      tower_forward(m, R, s, 1, a.p + pi_size, 1, s.vhead, nr);
+      mark(tm, 1);
+
+      // ---- forward: L + 1 phases (one per tower in staged mode) ----------
+      for (int l = 0; l <= L; ++l) {
+        for (int t0 = 0; t0 < 2; t0 += resident ? 2 : 1) {
+          Dense jobs[2];
+          const int nt = resident ? 2 : 1;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (u >= nt) break;
+            const int t = t0 + u, k = t * (L + 1) + l;
+            const float* w = resident ? s.w + bl.padded[k] : stage_next(a, bl, s.w, item);
+            Dense& d = jobs[u];
+            d.in = l == 0 ? s.xs : s.h + ((t * L) + l - 1) * R * sH;
+            d.sin = l == 0 ? sF : sH;
+            d.n_in = bl.in[k];
+            d.w = w;
+            d.S = row_stride(bl.out[k]);
+            d.n_out = bl.out[k];
+            d.out = l < L ? s.h + (t * L + l) * R * sH : (t == 0 ? s.head : s.vhead);
+            d.sout = l < L ? sH : (t == 0 ? sA : 4);
+            d.act = l < L ? m.relu : -1;
+          }
+          fwd_phase(jobs[0], jobs[1], nt, nr);
+        }
+      }
       mark(tm, 2);
       loss_rows(a, s, nr, mean, denom);
-      mark(tm, 3);
       if (tid < 5)
         for (int r = 0; r < nr; ++r) cta_stats[tid] += s.rstat[r * 5 + tid];
-      tower_backward(m, R, s, 0, a.p, m.A, s.head, nr, my_slot, first);
-      tower_backward(m, R, s, 1, a.p + pi_size, 1, s.vhead, nr, my_slot + pi_size, first);
-      __syncthreads();
+      mark(tm, 3);
+
+      // ---- backward: head, layers L-1..1 (weight and input gradients
+      // together), then layer 0's weight gradients ---------------------------
+      for (int l = L; l >= 0; --l) {
+        const int step_t = (resident || l == 0) ? 2 : 1;
+        for (int t0 = 0; t0 < 2; t0 += step_t) {
+          Grad gs[2];
+          Back bs[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (u >= step_t) break;
+            const int t = t0 + u, k = t * (L + 1) + l;
+            const float* dz = l == L ? (t == 0 ? s.head : s.vhead) : s.D + (t * 2 + (l & 1)) * R * sH;
+            const int sd = l == L ? (t == 0 ? sA : 4) : sH;
+            const float* hin = l == 0 ? s.xs : s.h + (t * L + l - 1) * R * sH;
+            Grad& g = gs[u];
+            g.in = hin;
+            g.sin = l == 0 ? sF : sH;
+            g.n_in = bl.in[k];
+            g.d = dz;
+            g.sd = sd;
+            g.n_out = bl.out[k];
+            g.slot = my_slot + bl.packed[k];
+            if (l > 0) {
+              Back& b = bs[u];
+              b.d = dz;
+              b.sd = sd;
+              b.n4 = round4(bl.out[k]);
+              b.w = resident ? s.w + bl.padded[k] : stage_next(a, bl, s.w, item);
+              b.S = row_stride(bl.out[k]);
+              b.n_in = m.H;
+              b.h = hin;
+              b.sh = sH;
+              b.out = s.D + (t * 2 + ((l - 1) & 1)) * R * sH;
+              b.so = sH;
+              b.relu = m.relu;
+            }
+          }
+          bwd_phase(gs[0], gs[1], step_t, bs[0], bs[1], l > 0 ? step_t : 0, nr, first);
+        }
+      }
       mark(tm, 4);
       first = false;
     }
@@ -438,7 +692,7 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
     grid.sync();
     mark(tm, 5);
 
-    // ---- 4. reduce this CTA's slice over all slots, in slot order --------
+    // ---- reduce this CTA's slice over all slots, in a fixed order ---------
     // CTA 0: warp k < 8 writes stat k (the first five summed over the slots,
     // lane-strided, then a fixed shuffle tree)
     const int warp = tid >> 5, lane = tid & 31;
@@ -449,11 +703,37 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
       sum = warp_sum(sum);
       if (lane == 0) a.stats[step * 8 + warp] = (warp == 0 ? -sum : sum) / static_cast<float>(mb);
     }
+    // groups of 32 slots summed in slot order, in parallel; then the groups
+    // in order (the shared memory is free until the next step's copy)
+    const int width = hi - lo;
+    int ngrp = (n_cta + 31) >> 5;
+    if (width * ngrp > a.smem_floats) ngrp = 1;
+    float* part = smem_ppo;
+    if (ngrp > 1) {
+      for (int it = tid; it < width * ngrp; it += blockDim.x) {
+        const int grp = it / width, j = lo + (it - grp * width);
+        float vals[32];
+#pragma unroll
+        for (int u = 0; u < 32; ++u) {
+          const int k = grp * 32 + u;
+          vals[u] = k < n_cta ? __ldcg(a.partial + static_cast<long long>(k) * P + j) : 0.0f;
+        }
+        float g = 0.0f;
+#pragma unroll
+        for (int u = 0; u < 32; ++u) g += vals[u];  // + 0.0f past the last slot changes nothing
+        part[it] = g;
+      }
+      __syncthreads();
+    }
     float sq = 0.0f;
     for (int j = lo + tid; j < hi; j += blockDim.x) {
       float g = 0.0f;
+      if (ngrp > 1) {
+        for (int grp = 0; grp < ngrp; ++grp) g += part[grp * width + (j - lo)];
+      } else {
 #pragma unroll 16
-      for (int k = 0; k < n_cta; ++k) g += __ldcg(a.partial + static_cast<long long>(k) * P + j);
+        for (int k = 0; k < n_cta; ++k) g += __ldcg(a.partial + static_cast<long long>(k) * P + j);
+      }
       a.grad[j] = g;
       sq += g * g;
     }
@@ -463,7 +743,7 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
     grid.sync();
     mark(tm, 7);
 
-    // ---- 6-7. global norm, clip scale, Adam on this slice -----------------
+    // ---- global norm, clip scale, Adam on this slice -------------------------
     if (warp == 0) {  // the same lane-strided sum and shuffle tree in every CTA
       float tot = 0.0f;
       for (int k = lane; k < n_cta; k += 32) tot += __ldcg(a.ss_slots + k);
@@ -480,7 +760,9 @@ __global__ void __launch_bounds__(kThreads) ppo_kernel(PpoArgs a) {
       const float vj = 0.999f * a.v[j] + 0.001f * (g * g);
       a.m[j] = mj;
       a.v[j] = vj;
-      a.p[j] = a.p[j] - a.lr * (mj / bc1) / (sqrtf(vj / bc2) + a.eps);
+      const float pj = a.p[j] - a.lr * (mj / bc1) / (sqrtf(vj / bc2) + a.eps);
+      a.p[j] = pj;
+      a.p_pad[padded_index(bl, j)] = pj;
     }
     mark(tm, 8);
     grid.sync();
@@ -509,18 +791,31 @@ int hex_gae(const void* rewards, const void* values, const void* dones, const vo
 }
 
 // The sweep's launch shape for one model and minibatch: plan = [grid, R
-// (rows per chunk), dynamic shared-memory bytes].  grid never exceeds the
-// CTAs that fit on the card at once (a cooperative launch needs them all
-// resident) nor the number of R-row chunks of a minibatch, so every CTA
-// owns at least one chunk.
+// (rows per chunk), dynamic shared-memory bytes, resident (1: the whole
+// padded parameter image in shared memory; 0: staged per tower-layer),
+// Ppad (floats of the padded image)].  The resident layout is taken at the
+// largest R (32, 16, 8, 4) that fits, else the staged one.  grid never
+// exceeds the CTAs that fit on the card at once (a cooperative launch needs
+// them all resident) nor the number of R-row chunks of a minibatch, so
+// every CTA owns at least one chunk.
 int hex_ppo_plan(int F, int H, int A, int n_layers, int mb, int* plan) {
   const Mlp m{F, H, A, n_layers, 0};
   if (n_layers < 1 || n_layers > 8) return static_cast<int>(cudaErrorInvalidValue);
-  int R = 32;
-  const int limit = 220 * 1024;
-  while (R > 1 && ppo_smem_floats(m, R) * static_cast<int>(sizeof(float)) > limit) R /= 2;
-  const int smem = ppo_smem_floats(m, R) * static_cast<int>(sizeof(float));
-  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  Blocks b;
+  blocks_of(m, b);
+  const long long limit = 220 * 1024;
+  int R = 0, resident = 1;
+  for (int mode = 1; mode >= 0 && R == 0; --mode) {
+    for (int r = 32; r >= 4; r /= 2) {
+      if (static_cast<long long>(ppo_smem_floats(m, b, r, mode)) * 4 <= limit) {
+        R = r;
+        resident = mode;
+        break;
+      }
+    }
+  }
+  if (R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = ppo_smem_floats(m, b, R, resident) * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(ppo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, n_sm = 0, per_sm = 0, coop = 0;
@@ -537,15 +832,19 @@ int hex_ppo_plan(int F, int H, int A, int n_layers, int mb, int* plan) {
   plan[0] = per_sm * n_sm < chunks ? per_sm * n_sm : chunks;
   plan[1] = R;
   plan[2] = smem;
+  plan[3] = resident;
+  plan[4] = b.Ppad;
   return 0;
 }
 
-// One cooperative launch of the sweep (grid and R from hex_ppo_plan).
+// One cooperative launch of the sweep (grid, R, smem and resident from
+// hex_ppo_plan).
 int hex_ppo(const void* obs, const void* flt, const void* idx, const void* order, const void* bias,
             void* p, void* m, void* v, void* stats, void* partial, void* stat_slots, void* ss_slots,
-            void* grad, int F, int H, int A, int n_layers, int relu, int mb, int G, float lr,
-            float clip, float clip_lo, float clip_hi, float ent_scale, float vf_scale,
-            float max_norm, float eps, int grid, int R, int smem, void* timers, void* stream) {
+            void* grad, void* adv, void* p_pad, int F, int H, int A, int n_layers, int relu, int mb,
+            int G, float lr, float clip, float clip_lo, float clip_hi, float ent_scale,
+            float vf_scale, float max_norm, float eps, int grid, int R, int smem, int resident,
+            void* timers, void* stream) {
   PpoArgs a{};
   a.obs = static_cast<const int8_t*>(obs);
   a.flt = static_cast<const float*>(flt);
@@ -560,12 +859,16 @@ int hex_ppo(const void* obs, const void* flt, const void* idx, const void* order
   a.stat_slots = static_cast<float*>(stat_slots);
   a.ss_slots = static_cast<float*>(ss_slots);
   a.grad = static_cast<float*>(grad);
+  a.adv = static_cast<float*>(adv);
+  a.p_pad = static_cast<float*>(p_pad);
   a.timers = static_cast<long long*>(timers);
   a.mlp = Mlp{F, H, A, n_layers, relu};
   a.mb = mb;
   a.G = G;
   a.R = R;
   a.P = hex::tower_size(a.mlp, A) + hex::tower_size(a.mlp, 1);
+  a.resident = resident;
+  a.smem_floats = smem / static_cast<int>(sizeof(float));
   a.lr = lr;
   a.clip = clip;
   a.clip_lo = clip_lo;

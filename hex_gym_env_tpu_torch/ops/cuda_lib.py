@@ -58,12 +58,13 @@ _ARGTYPES = {
     "hex_agent": [P, I, I, I, I, I, P, P, P, U64, P, P, P, P, I, P],
     "hex_bank": [P, I, I, I, I, I, P, P, P, P, U64, P, P, I, P],
     "hex_rollout": (
-        [P, P, P, I, I, I, I, I, I]  # weights + dims
+        [P, P, P, P, I, I, I, I, I, I]  # weights, image scratch, dims
         + [P] * 9  # state in
         + [P, P, P, P, U64]  # bits + philox seed
         + [P, P, P]  # obs / ints / flts
         + [P] * 9  # state out
-        + [I, I, I, I, F32, I, I, P, P]  # ..., eval_mode, timers, stream
+        + [I, I, I, I, F32, I, I]  # B, n, L, T, best_prob, per_episode_seat, eval_mode
+        + [I, I, I, P, P]  # games per CTA, agent / members in smem, timers, stream
     ),
     "hex_random_rollout": (
         [P] * 5 + [U64]  # state in, bits, philox seed
@@ -72,12 +73,14 @@ _ARGTYPES = {
     ),
     "hex_gae": [P] * 6 + [I, I, F32, F32, P],
     "hex_ppo": (
-        [P] * 13  # obs, flt, idx, order, bias, p, m, v, stats + 4 scratch
+        [P] * 15  # obs, flt, idx, order, bias, p, m, v, stats + 6 scratch
         + [I] * 7  # F, H, A, n_layers, relu, mb, G
         + [F32] * 8  # lr, clip, clip_lo, clip_hi, ent_scale, vf_scale, max_norm, eps
-        + [I, I, I, P, P]  # grid, R, smem, timers, stream
+        + [I, I, I, I, P, P]  # grid, R, smem, resident, timers, stream
     ),
     "hex_ppo_plan": [I, I, I, I, I, P],  # launches nothing: no stream
+    "hex_rollout_image_floats": [I] * 5,  # a size: no stream
+    "hex_rollout_plan": [I] * 7 + [P],  # launches nothing: no stream
 }
 
 _lock = threading.Lock()
@@ -178,16 +181,37 @@ def launch(kernel: str, entry: str, *args) -> None:
     launches[kernel] += 1
 
 
-def ppo_plan(F: int, H: int, A: int, n_layers: int, mb: int) -> tuple[int, int, int]:
+def ppo_plan(F: int, H: int, A: int, n_layers: int, mb: int) -> tuple[int, int, int, int, int]:
     """K6's launch shape on the current device: ``(grid, rows per chunk,
-    shared-memory bytes)``; grid is at most the CTAs that fit on the card
-    at once, as a cooperative launch needs.  Raises on an error code."""
+    shared-memory bytes, resident, padded parameter floats)``; grid is at
+    most the CTAs that fit on the card at once, as a cooperative launch
+    needs; ``resident`` says whether the whole padded parameter image sits
+    in shared memory (else one tower-layer at a time is staged).  Raises on
+    an error code."""
     handle = lib()
-    plan = (ctypes.c_int * 3)()
+    plan = (ctypes.c_int * 5)()
     code = handle.hex_ppo_plan(F, H, A, n_layers, mb, ctypes.addressof(plan))
     if code != 0:
         raise RuntimeError(f"hex_ppo_plan failed: {handle.hex_error_string(code).decode()}")
-    return plan[0], plan[1], plan[2]
+    return tuple(plan)
+
+
+def rollout_plan(F: int, H: int, A: int, n_layers: int, n: int, L: int, B: int):
+    """K4's launch shape on the current device: ``(games per CTA, agent in
+    shared memory, bank members in shared memory, shared-memory bytes)``.
+    Raises on an error code."""
+    handle = lib()
+    plan = (ctypes.c_int * 4)()
+    code = handle.hex_rollout_plan(F, H, A, n_layers, n, L, B, ctypes.addressof(plan))
+    if code != 0:
+        raise RuntimeError(f"hex_rollout_plan failed: {handle.hex_error_string(code).decode()}")
+    return tuple(plan)
+
+
+def rollout_image_floats(F: int, H: int, A: int, n_layers: int, P1: int) -> int:
+    """Floats of K4's scratch for the transposed, padded towers of the agent
+    and the P1 bank members that its launch builds."""
+    return int(lib().hex_rollout_image_floats(F, H, A, n_layers, P1))
 
 
 def ptr(t: torch.Tensor | None):

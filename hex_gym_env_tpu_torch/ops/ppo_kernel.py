@@ -185,24 +185,24 @@ def _sweep_cuda(p, m, v, d: pk.MlpDims, cfg: PPOConfig, obs, flt, idx, order, bi
         order = chk("order", order, torch.int32, (G,))
     bias = chk("bias", bias, torch.float32, (G, 2))
     p, m, v = (chk(name, t, torch.float32, (S,)).clone() for name, t in (("p", p), ("m", m), ("v", v)))
-    grid, R, smem = cuda_lib.ppo_plan(d.F, d.H, d.A, d.n_layers, mbs)
+    grid, R, smem, resident, ppad = cuda_lib.ppo_plan(d.F, d.H, d.A, d.n_layers, mbs)
     if timers is not None:
         timers = chk("timers", timers, torch.int64, (grid, G, PPO_MARKS))
     dev = obs.device
     stats = torch.empty((G, N_STATS), dtype=torch.float32, device=dev)
-    partial = torch.empty((grid, S), dtype=torch.float32, device=dev)
-    stat_slots = torch.empty((grid, 8), dtype=torch.float32, device=dev)
-    ss_slots = torch.empty((grid,), dtype=torch.float32, device=dev)
-    grad = torch.empty((S,), dtype=torch.float32, device=dev)
+    # per-CTA gradient slots, stat slots, slice sums of squares, the reduced
+    # gradient, per-step advantage statistics, the padded parameter image
+    scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in ((grid, S), (grid, 8), (grid,), (S,), (G, 2), (ppad,))]
     c = cfg.clip_range
     ptr = cuda_lib.ptr
     cuda_lib.launch(
         "k6_ppo", "hex_ppo",
         ptr(obs), ptr(flt), ptr(idx), ptr(order), ptr(bias), ptr(p), ptr(m), ptr(v), ptr(stats),
-        ptr(partial), ptr(stat_slots), ptr(ss_slots), ptr(grad),
+        *map(ptr, scratch),
         d.F, d.H, d.A, d.n_layers, int(d.relu), mbs, G,
         cfg.learning_rate, c, 1.0 - c, 1.0 + c, cfg.ent_coef / mbs, cfg.vf_coef * 2.0 / mbs,
-        cfg.max_grad_norm, cfg.adam_eps, grid, R, smem, ptr(timers),
+        cfg.max_grad_norm, cfg.adam_eps, grid, R, smem, resident, ptr(timers),
     )
     return p, m, v, stats
 

@@ -23,7 +23,8 @@ Random draws follow the JAX kernel's map exactly (``ops/masked.py``): with
 bits given (the JAX interpret-mode layout: agent, opponent and first-move
 (T, B, A) and reset (T, B, 128), lanes 0-2 = seat, best, slot), the kernel
 and the twin produce the same record.  Without bits the kernel draws from
-Philox streams seeded from the generator.
+Philox streams keyed by a seed from the generator, the game and the lane (a
+warp holds one game), so a restored generator replays the draws.
 """
 
 from __future__ import annotations
@@ -253,8 +254,8 @@ def _rollout_cuda(
 ) -> FusedRolloutOut:
     B, L, F, A = state.batch_size, topo.lanes, topo.num_cells, d.A
     P1 = stacked.shape[0]
-    if L > 1024:
-        raise ValueError(f"the rollout kernel runs one thread per lane; {L} lanes is too many")
+    if L > 128:
+        raise ValueError(f"the rollout kernel holds a game's lanes in one warp; {L} lanes is too many")
     chk = cuda_lib.check_cuda
     agent = chk("packed_agent", packed_agent, torch.float32,
                 (pk.tower_size(d, A) + pk.tower_size(d, 1),))
@@ -294,17 +295,20 @@ def _rollout_cuda(
         move_count=torch.empty_like(moves),
     )
     o_seat, o_ub, o_oi = torch.empty_like(seat), torch.empty_like(ub), torch.empty_like(oi)
+    # the launch's transposed, padded agent and bank (see the kernel's note)
+    image = torch.empty((cuda_lib.rollout_image_floats(d.F, d.H, A, d.n_layers, P1),),
+                        dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.launch(
         "k4_rollout", "hex_rollout",
-        p(agent), p(bank), p(first), d.F, d.H, A, d.n_layers, int(d.relu), P1,
+        p(agent), p(bank), p(first), p(image), d.F, d.H, A, d.n_layers, int(d.relu), P1,
         p(stones), p(labels), p(to_move), p(done), p(empty), p(moves), p(seat), p(ub), p(oi),
         *[p(b) for b in bits], seed,
         p(obs), p(ints), p(flts),
         p(o.stones), p(o.labels), p(o.to_move), p(o.done), p(o.empty), p(o.move_count),
         p(o_seat), p(o_ub), p(o_oi),
         B, topo.n, L, n_steps, float(best_prob), int(per_episode_seat), int(eval_mode),
-        p(timers),
+        *cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, topo.n, L, B)[:3], p(timers),
     )
     return FusedRolloutOut(obs, ints, flts, o, o_seat, o_ub, o_oi)
 
@@ -457,7 +461,8 @@ def verify_rollout_trajectory(
 def supported(model, cfg) -> bool:
     """The kernel takes plain equal-tower MLPs, empty-board resets (its
     opening-move table needs them), boards up to 11x11 (cells + 4 edge
-    virtuals in 128 lanes, one thread per lane) and a float32 bank."""
+    virtuals in 128 lanes, four per thread of the game's warp) and a
+    float32 bank."""
     if cfg.board_size**2 + 4 > 128:
         return False
     if cfg.sample_board or getattr(cfg, "rollout_bank_bf16", False):

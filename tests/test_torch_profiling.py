@@ -6,9 +6,16 @@ import numpy as np
 import pytest
 import torch
 
+from hex_gym_env_tpu_torch.core import env as hex_env
+from hex_gym_env_tpu_torch.core.topology import get_topology
+from hex_gym_env_tpu_torch.models import make_policy
+from hex_gym_env_tpu_torch.ops import policy_kernel as pk
 from hex_gym_env_tpu_torch.ops import ppo_kernel as pkk
 from hex_gym_env_tpu_torch.ops import rollout_kernel as rk
+from hex_gym_env_tpu_torch.train import ppo
+from hex_gym_env_tpu_torch.train.bank import init_bank
 from hex_gym_env_tpu_torch.utils import profiling
+from hex_gym_env_tpu_torch.utils.config import PPOConfig
 
 NAMES = ("a", "b", "c")
 
@@ -100,11 +107,53 @@ def test_phase_names_match_the_kernels_mark_counts():
     assert rk.ROLLOUT_MARKS == len(rk.ROLLOUT_PHASES) + 1
 
 
-def test_the_kernels_clock_buffers_must_lie_on_the_card():
-    """``timers`` belongs to the kernel path: the CUDA wrappers check it
-    like every other input, before anything is built or launched."""
-    from hex_gym_env_tpu_torch.ops import cuda_lib
+def _small_policy():
+    topo = get_topology(3)
+    g = torch.Generator().manual_seed(0)
+    model = make_policy("MLP-default", topo.num_cells, generator=g)
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    return topo, model, params, g
 
-    with pytest.raises(ValueError, match="timers must lie on a CUDA device"):
-        cuda_lib.check_cuda("timers", torch.zeros((1, 1, pkk.PPO_MARKS), dtype=torch.int64),
-                            torch.int64, (1, 1, pkk.PPO_MARKS))
+
+def test_rollout_clock_is_the_kernels_alone():
+    """On CPU tensors the twin runs and leaves the clock buffer untouched;
+    "pallas" still raises there."""
+    topo, model, params, g = _small_policy()
+    A, B, T = topo.num_cells, 4, 3
+    pol = pk.PolicyOps(model, "auto")
+    stacked = pol.stack_bank(init_bank(params, 2))
+    state = hex_env.initial_state(topo, B, "cpu")
+    zeros = torch.zeros(B, dtype=torch.int32)
+    args = (pol.pack_agent(params), stacked, rk.first_move_table(stacked, pol.dims), state, zeros,
+            zeros.bool(), zeros, T, 0.8, True)
+    bits = rk.draw_rollout_bits(g, T, B, A, "cpu")
+    timers = torch.zeros((B, T, rk.ROLLOUT_MARKS), dtype=torch.int64)
+    clocked = rk.fused_rollout(topo, pol, *args, bits=bits, timers=timers)
+    plain = rk.fused_rollout(topo, pol, *args, bits=bits)
+    assert torch.equal(clocked.ints, plain.ints) and torch.equal(clocked.flts, plain.flts)
+    assert not timers.any()
+    with pytest.raises(ValueError, match="pallas"):
+        rk.fused_rollout(topo, pk.PolicyOps(model, "pallas"), *args, bits=bits, timers=timers)
+
+
+def test_sweep_clock_is_the_kernels_alone():
+    topo, model, params, g = _small_policy()
+    A, n = topo.num_cells, 16
+    pol = pk.PolicyOps(model, "auto")
+    obs = torch.randint(-1, 2, (n, A), generator=g).to(torch.int8)
+    act = ((obs == 0).float() * torch.rand((n, A), generator=g)).argmax(1)
+    flt = torch.stack([act.float(), torch.randn(n, generator=g) - 2.0,
+                       torch.randn(n, generator=g), torch.randn(n, generator=g)], 1)
+    idx = torch.randperm(n, generator=g).to(torch.int32).reshape(2, 8)
+    cfg = PPOConfig(minibatch_size=8, n_epochs=1)
+    p = pol.pack_agent(params)
+    z = torch.zeros_like(p)
+    bias = ppo.bias_corrections(0, 2, "cpu")
+    timers = torch.zeros((1, 2, pkk.PPO_MARKS), dtype=torch.int64)
+    clocked = pkk.sweep(pol, cfg, p, z, z, obs, flt, idx, bias, timers=timers)
+    plain = pkk.sweep(pol, cfg, p, z, z, obs, flt, idx, bias)
+    for got, want in zip(clocked, plain):
+        assert torch.equal(got, want)
+    assert not timers.any()
+    with pytest.raises(ValueError, match="pallas"):
+        pkk.sweep(pk.PolicyOps(model, "pallas"), cfg, p, z, z, obs, flt, idx, bias, timers=timers)

@@ -7,12 +7,16 @@
 2. holds each kernel against its plain PyTorch twin at the main path's
    shapes (7x7, 256 games, H = 64, 31 bank members, 128 steps), fed the same
    random bits: env ints and actions exactly equal, floats within ``TOL``;
-   the random-legal rollout K7 at the benchmark's 8192 games, exactly equal
-   to its twin over 64 steps with the same bits from the initial state and
-   from a mid-game state with finished rows and a full board, and on its own
-   Philox streams over 512 steps: the invariants of the JAX package's test
-   of the kernel, and mean games per env within 3 standard errors of the
-   twin's on generator bits;
+   the env step K1 also at the eval opening's 30 games and at 13x13 (256
+   lanes), from states with done, inactive and invalid rows and off-board
+   actions; the random-legal rollout K7 at the benchmark's 8192 games,
+   exactly equal to its twin over 64 steps with the same bits from the
+   initial state and from a mid-game state with finished rows and a full
+   board, the same at 13x13 and 3x3, and on its own Philox streams over 512
+   steps: the invariants of the JAX package's test of the kernel, and mean
+   games per env within 3 standard errors of the twin's on generator bits;
+   every kernel's call time (CUDA events around its wrapper's calls) and
+   device time (its own kernels' self device time under ``torch.profiler``);
 3. drives the main path: ``SelfplayRunner.run`` of the
    ``7x7_MLP-default_lr-0.0003`` preset three times through the
    whole-rollout kernel, replays the first rollout's record through the
@@ -51,6 +55,13 @@ only builds the kernels and prints, on lines tagged ``[split LABEL]``, the
 phase clocks of K6 (the preset's 80-step sweep) and K4 (the preset's
 rollout) with their times: run from an unpacked older tree in the same call,
 it gives the split before a change beside the split after it.
+
+    python3 chip_smoke.py --env-kernels LABEL ROOT
+
+only builds the kernels of the port found in the directory ROOT and prints,
+on a line tagged ``[env LABEL]``, the call and device times of K7 (its
+Philox streams at the benchmark's shape) and K1 (7x7, 256 games): with ROOT
+an unpacked older tree, the same measurement of the kernels before a change.
 """
 
 from __future__ import annotations
@@ -71,7 +82,25 @@ N, B, H, POOL, T = 7, 256, 64, 30, 128
 # against its twin with the same injected bits at K7_T_BITS steps (the bits
 # are K7_T_BITS * K7_B * 128 words, 268 MB)
 K7_B, K7_T, K7_T_BITS = 8192, 512, 64
-K7_OPS_PER_LANE_STEP = 19  # score + max, the relabel's 8 compares + 8 ors, the select
+# K7 also at 13x13 (256 lanes) and 3x3 with injected bits: (n, games, steps,
+# plies of the mid-game start)
+K7_OTHER_BOARDS = ((13, 512, 200, 149), (3, 4096, 64, 6))
+
+
+def k7_ops_per_game_step(F: int) -> int:
+    """K7's integer operations per game and step (its note in hex_kernels.cu):
+    the score and the max over the F cells, and the relabel's 8 compares and
+    8 ors and the select over the F + 4 real lanes."""
+    return 2 * F + 17 * (F + 4)
+
+
+K7_OLD_OPS_PER_LANE_STEP = 19  # the earlier count: 19 operations on each of the L lanes, padding too
+# the kernels' names in torch.profiler's device events, for their device time
+KERNEL_NAMES = {
+    "k1_step": ("step_kernel",), "k2_agent": ("agent_kernel",), "k3_bank": ("bank_kernel",),
+    "k4_rollout": ("tower_image_kernel", "rollout_kernel"), "k5_gae": ("gae_kernel",),
+    "k6_ppo": ("ppo_kernel",), "k7_random_rollout": ("random_rollout_kernel",),
+}
 PRESET = "7x7_MLP-default_lr-0.0003"
 # K6 vs its twin: float32 sums in another order (fmaf loops and a fixed
 # slot-order reduction vs cuBLAS); measured ~2e-7 relative after one grad
@@ -102,6 +131,164 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host-clock microseconds per call of ``fn`` over ``reps`` calls, after
+    one warm-up, not counting the wait for the work they queue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
+
+
+def device_ms(fn, names, reps: int) -> float:
+    """The device time per call of ``fn`` of the kernels ``names``: their
+    self device time under ``torch.profiler`` over ``reps`` calls, after one
+    warm-up, so the host's work between launches is not in it.  Fails where
+    the profiler shows none (it does on the H100 machine)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    pattern = re.compile(r"(?:^|[\s:])(?:%s)[(<]" % "|".join(names))
+    us = 0.0
+    for ev in prof.key_averages():
+        if pattern.search(ev.key):
+            t = getattr(ev, "self_device_time_total", None)
+            us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+    if us <= 0:
+        fail(f"torch.profiler shows no device time for {names}")
+    return us / reps / 1e3
+
+
+def k1_inputs(topo, B: int, plies: int, g):
+    """A K1 input on the card: ``plies`` random legal plies of the plain env
+    from the empty board, then a tenth of the rows ended by an invalid move;
+    actions over [-8, L + 8), so occupied cells, padding and virtual lanes,
+    cells off the board and negative ones; a fifth of the rows inactive.
+    ``g`` is a CPU generator."""
+    import torch
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.ops import masked
+
+    dev = torch.device("cuda")
+    A = topo.num_cells
+    state = hex_env.initial_state(topo, B, dev)
+    for _ in range(plies):
+        legal = hex_env.legal_mask(topo, state)
+        a = masked.sample(masked.draw_bits(g, (B, A), dev), torch.zeros((B, A), device=dev), legal)
+        state, _ = hex_env.step(topo, state, a)
+    end = (torch.rand((B,), generator=g) < 0.1).to(dev)
+    state, _ = hex_env.step(topo, state, torch.full((B,), -1, dtype=torch.int32, device=dev), end)
+    actions = torch.randint(-8, topo.lanes + 8, (B,), generator=g).to(dev, torch.int32)
+    active = (torch.rand((B,), generator=g) < 0.8).to(dev)
+    return state, actions, active
+
+
+def k7_mid_state(topo, B: int, plies: int, gen):
+    """``plies`` random legal plies of the plain env on the card (finished
+    games stay done), then row 0 replaced by a full board (no empty cell)."""
+    import dataclasses
+
+    import torch
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.ops import masked
+
+    dev = torch.device("cuda")
+    state = hex_env.initial_state(topo, B, dev)
+    for _ in range(plies):
+        legal = hex_env.legal_mask(topo, state)
+        a = masked.sample(masked.draw_bits(gen, legal.shape, dev),
+                          torch.zeros(legal.shape, device=dev), legal)
+        state, _ = hex_env.step(topo, state, a)
+    n = topo.n
+    yy, xx = torch.meshgrid(torch.arange(n), torch.arange(n), indexing="ij")
+    full_board = torch.where((yy + xx) % 2 == 0, -1, 1).to(torch.int8)[None].to(dev)
+    full = hex_env.state_from_boards(topo, full_board)
+    state = dataclasses.replace(state, **{
+        name: torch.cat([getattr(full, name), getattr(state, name)[1:]])
+        for name in ("stones", "labels", "to_move", "done", "winner", "empty", "move_count")})
+    n_done = int(state.done.sum())
+    if not 0 < n_done < B or int(state.empty[0]) != 0:
+        fail(f"the K7 {n}x{n} mid-game state has {n_done} finished rows and row 0 empty "
+             f"{state.empty[0]}")
+    return state
+
+
+def k7_exact(topo, start, T: int, bits, label: str) -> None:
+    """K7 from ``start`` on injected ``bits`` must give exactly its twin's
+    state and games, and a full-board row 0 must reset."""
+    import torch
+    from hex_gym_env_tpu_torch.ops import step_kernel
+
+    k_out, k_games = step_kernel.random_rollout_cuda(topo, start, T, bits=bits)
+    t_out, t_games = step_kernel.random_rollout_twin(topo, start, T, bits=bits)
+    torch.cuda.synchronize()
+    B, n = start.batch_size, topo.n
+    for name in ("stones", "labels", "to_move", "done", "winner", "empty", "move_count"):
+        k, tw = getattr(k_out, name), getattr(t_out, name)
+        if not torch.equal(k, tw):
+            rows = int((k != tw).reshape(B, -1).any(-1).sum())
+            fail(f"K7 {n}x{n} from the {label} state: {name} differs from the twin in {rows} games")
+    if not torch.equal(k_games, t_games):
+        fail(f"K7 {n}x{n} from the {label} state: games differ from the twin")
+    if int(start.empty[0]) == 0 and int(k_games[0]) < 1:
+        fail(f"K7 {n}x{n} did not reset the full-board row")
+    print(f"[K7 random rollout] {n}x{n} (L {topo.lanes}) from the {label} state "
+          f"({int(start.done.sum())} done rows): state and games exactly the twin's over {T} "
+          f"steps x {B} games; {int(k_games.sum())} games finished, row 0 reset "
+          f"{int(k_games[0])} times")
+
+
+def env_kernel_times(label: str) -> dict:
+    """Call time (CUDA events around the wrapper's calls) and device time
+    (``device_ms``) of K7 on its Philox streams at the benchmark's shape,
+    seeded from a CPU generator, and of K1 at 7x7, B = 256, through the
+    package first on ``sys.path``; prints them on a line tagged
+    ``[env LABEL]``."""
+    import torch
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.core.topology import get_topology
+    from hex_gym_env_tpu_torch.ops import step_kernel
+
+    topo = get_topology(N)
+    init7 = hex_env.initial_state(topo, K7_B, torch.device("cuda"))
+    gen = torch.Generator().manual_seed(77)
+
+    def k7():
+        return step_kernel.random_rollout_cuda(topo, init7, K7_T, generator=gen)
+
+    state, actions, active = k1_inputs(topo, B, 24, torch.Generator().manual_seed(31))
+
+    def k1():
+        return step_kernel.step_cuda(topo, state, actions, active)
+
+    out = {"k7": (cuda_ms(k7, 10), device_ms(k7, KERNEL_NAMES["k7_random_rollout"], 10)),
+           "k1": (cuda_ms(k1, 200), device_ms(k1, KERNEL_NAMES["k1_step"], 200))}
+    print(f"[env {label}] K7 Philox {K7_T} steps x {K7_B} games: call {out['k7'][0]:.4f} ms, "
+          f"device {out['k7'][1]:.4f} ms; K1 7x7 B {B}: call {out['k1'][0]:.5f} ms, "
+          f"device {out['k1'][1]:.5f} ms")
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    if hasattr(cuda_lib, "env_plan"):  # trees whose K1 and K7 run a warp per game
+        print(f"[env {label}] launch shape (games per CTA, CTAs per SM, registers): K7 "
+              f"{cuda_lib.env_plan('k7_random_rollout', K7_B, topo.lanes)}, K1 "
+              f"{cuda_lib.env_plan('k1_step', B, topo.lanes)}")
+    return out
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -252,14 +439,14 @@ def phase_splits(label: str) -> dict:
     return out
 
 
-def preflight(torch) -> bool:
+def preflight(torch, root: str = REPO) -> bool:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return False
-    if not os.path.exists(os.path.join(REPO, "hex_gym_env_tpu_torch", "csrc", "hex_kernels.cu")):
-        print("chip_smoke: the port's sources are not beside this script", file=sys.stderr)
+    if not os.path.exists(os.path.join(root, "hex_gym_env_tpu_torch", "csrc", "hex_kernels.cu")):
+        print(f"chip_smoke: the port's sources are not in {root}", file=sys.stderr)
         return False
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(root))
     return True
 
 
@@ -277,6 +464,22 @@ def split_only(label: str) -> int:
     cuda_lib.lib()
     print(f"[split {label}] kernels built in {time.perf_counter() - t0:.1f} s")
     phase_splits(label)
+    return 0
+
+
+def env_only(label: str, root: str) -> int:
+    import torch
+
+    if not preflight(torch, root):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    print(f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_lib.lib()
+    print(f"[env {label}] kernels built in {time.perf_counter() - t0:.1f} s from "
+          f"{os.path.dirname(cuda_lib.__file__)}")
+    env_kernel_times(label)
     return 0
 
 
@@ -358,12 +561,46 @@ def main() -> int:
             fail(f"K1 {name} differs from the twin")
     if not torch.equal(k_rew, t_rew):
         fail("K1 rewards differ from the twin")
+    # the eval opening's B = 30, the scan path's 256 and 13x13 (256 lanes),
+    # with done, inactive and invalid rows and off-board actions
+    gk1 = torch.Generator().manual_seed(31)
+    for n1, b1, plies in ((N, B, 24), (N, 30, 24), (13, B, 60)):
+        topo1 = get_topology(n1)
+        s1, a1, act1 = k1_inputs(topo1, b1, plies, gk1)
+        ks, kr = step_kernel.step_cuda(topo1, s1, a1, act1)
+        ts, tr = hex_env.step(topo1, s1, a1, act1)
+        torch.cuda.synchronize()
+        for name in ("stones", "labels", "to_move", "done", "winner", "empty", "move_count"):
+            if not torch.equal(getattr(ks, name), getattr(ts, name)):
+                fail(f"K1 {n1}x{n1} B {b1}: {name} differs from the twin")
+        if not torch.equal(kr, tr):
+            fail(f"K1 {n1}x{n1} B {b1}: rewards differ from the twin")
+        played = act1 & ~s1.done
+        print(f"[K1 env step] {n1}x{n1} B {b1} (L {topo1.lanes}): exact; {int(s1.done.sum())} done, "
+              f"{int((~act1).sum())} inactive rows, {int((played & (ts.winner == 3)).sum())} invalid "
+              f"moves, {int((played & (ts.winner < 2) & (ts.winner >= 0)).sum())} wins; "
+              f"launch shape {cuda_lib.env_plan('k1_step', b1, topo1.lanes)}")
     k_ms = cuda_ms(lambda: step_kernel.step_cuda(topo, state, actions, active), 200)
+    k_dev = device_ms(lambda: step_kernel.step_cuda(topo, state, actions, active),
+                      KERNEL_NAMES["k1_step"], 200)
     p_ms = cuda_ms(lambda: hex_env.step(topo, state, actions, active), 50)
     n_bytes = B * (6 * L + 5 * 4 + 2) + B * (6 * L + 4 * 4 + 1 + 8)  # in + out
     bnd, by = bound_ms(n_bytes, 0)
-    kernels["k1_step"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, bound_ms=bnd, bound_by=by)
-    print(f"[K1 env step] exact; kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms")
+    kernels["k1_step"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=0.0,
+                              bound_ms=bnd, bound_by=by)
+    print(f"[K1 env step] exact; call {k_ms:.5f} ms, device {k_dev:.5f} ms, twin {p_ms:.4f} ms")
+    # where the call's host time goes: the whole wrapper, its two output
+    # buffers and their views, and the bare C entry on the same arguments
+    _, _, ints1, bytes1 = step_kernel.carve_outputs(B, L, dev, 2 * B)
+    c_args = [cuda_lib.ptr(t) for t in (state.stones, state.labels, state.to_move, state.done,
+                                         state.winner, state.empty, state.move_count, actions,
+                                         active, ints1, bytes1)]
+    c_args += [B, N, L, torch.cuda.current_stream().cuda_stream]
+    hex_step = cuda_lib.lib().hex_step
+    print("[K1 env step] host us per call: " + ", ".join(f"{name} {host_us(fn, 2000):.2f}" for name, fn in (
+        ("step_cuda", lambda: step_kernel.step_cuda(topo, state, actions, active)),
+        ("carve_outputs", lambda: step_kernel.carve_outputs(B, L, dev, 2 * B)),
+        ("bare C entry", lambda: hex_step(*c_args)))))
 
     # ---- 2b. K2 agent pass -----------------------------------------------------
     bits = masked.draw_bits(g, (B, A), dev)
@@ -383,12 +620,15 @@ def main() -> int:
         fail(f"K2 floats differ by {err}")
     gen_k = torch.Generator().manual_seed(1)
     k_ms = cuda_ms(lambda: pol.agent_act(packed, obs, legal, gen_k), 200)
+    k_dev = device_ms(lambda: pol.agent_act(packed, obs, legal, gen_k), KERNEL_NAMES["k2_agent"], 200)
     p_ms = cuda_ms(lambda: twin.agent_act(packed, obs, legal, bits=bits), 50)
     flops = 2 * B * (pk.tower_size(d, A) + pk.tower_size(d, 1) - (2 * d.H * d.n_layers + A + 1))
     n_bytes = 4 * packed.numel() + B * F + B * A + B * 12 + B * A * 4
     bnd, by = bound_ms(n_bytes, flops)
-    kernels["k2_agent"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err, bound_ms=bnd, bound_by=by)
-    print(f"[K2 agent] max err {err:.3g}, near-tie rows {ties}; kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms")
+    kernels["k2_agent"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=err,
+                               bound_ms=bnd, bound_by=by)
+    print(f"[K2 agent] max err {err:.3g}, near-tie rows {ties}; call {k_ms:.4f} ms, device "
+          f"{k_dev:.5f} ms, twin {p_ms:.4f} ms")
 
     # ---- 2c. K3 bank pass --------------------------------------------------------
     member = torch.randint(0, P1, (B,), generator=g).to(dev, torch.int32)
@@ -402,13 +642,17 @@ def main() -> int:
     if err > TOL:
         fail(f"K3 logits differ by {err}")
     k_ms = cuda_ms(lambda: pol.bank_act(stacked, use_best, member, obs, legal, gen_k), 200)
+    k_dev = device_ms(lambda: pol.bank_act(stacked, use_best, member, obs, legal, gen_k),
+                      KERNEL_NAMES["k3_bank"], 200)
     p_ms = cuda_ms(lambda: twin.bank_act(stacked, use_best, member, obs, legal, bits=bits), 50)
     used = int(member.unique().numel())
     flops = 2 * B * (pk.tower_size(d, A) - (d.H * d.n_layers + A))
     n_bytes = 4 * used * pk.tower_size(d, A) + B * F + B * A + B * 4 + B * 4 + B * A * 4
     bnd, by = bound_ms(n_bytes, flops)
-    kernels["k3_bank"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err, bound_ms=bnd, bound_by=by)
-    print(f"[K3 bank] max err {err:.3g}, near-tie rows {ties}; kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms")
+    kernels["k3_bank"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=err,
+                              bound_ms=bnd, bound_by=by)
+    print(f"[K3 bank] max err {err:.3g}, near-tie rows {ties}; call {k_ms:.4f} ms, device "
+          f"{k_dev:.5f} ms, twin {p_ms:.4f} ms")
 
     # ---- 2d. K4 whole rollout, training and eval mode ------------------------------
     setup = SelfplayRunner(topo, model, dataclasses.replace(
@@ -446,9 +690,13 @@ def main() -> int:
         print(f"[K4 rollout eval={eval_mode}] {int(row_ok.sum())}/{B} rows identical, "
               f"{int((~row_ok).sum())} near-tie rows, max err {ferr:.3g}, "
               f"{int(kout.ints[..., rk.I_DONE].sum())} done flags")
-    k_ms = cuda_ms(lambda: rk.fused_rollout(topo, pol, packed, stacked, table, carry.env,
-                                            carry.agent_seat, carry.use_best, carry.opp_idx, T,
-                                            cfg.best_prob, True, generator=gen_k), 10)
+    def k4_call():
+        return rk.fused_rollout(topo, pol, packed, stacked, table, carry.env, carry.agent_seat,
+                                carry.use_best, carry.opp_idx, T, cfg.best_prob, True,
+                                generator=gen_k)
+
+    k_ms = cuda_ms(k4_call, 10)
+    k_dev = device_ms(k4_call, KERNEL_NAMES["k4_rollout"], 10)
     p_ms = cuda_ms(lambda: rk.fused_rollout_twin(
         topo, d, packed, stacked, table, carry.env, carry.agent_seat, carry.use_best,
         carry.opp_idx, T, cfg.best_prob, True, rbits), 2)
@@ -459,55 +707,37 @@ def main() -> int:
                + 2 * B * (6 * L + 5 * 4 + 2)
                + T * B * F + 2 * T * B * 8 * 4)
     bnd, by = bound_ms(n_bytes, flops)
-    kernels["k4_rollout"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=k4_err, bound_ms=bnd,
-                                 bound_by=by)
+    kernels["k4_rollout"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=k4_err,
+                                 bound_ms=bnd, bound_by=by)
     plan4 = cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, N, L, B)
-    print(f"[K4 rollout] kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms for {T} steps x {B} games "
+    print(f"[K4 rollout] call {k_ms:.3f} ms, device {k_dev:.4f} ms (both kernels), twin {p_ms:.3f} ms for {T} steps x {B} games "
           f"(plan: games per CTA, agent / members in shared memory, bytes {plan4})")
 
     # ---- 2e. K7 random-legal rollout vs its twin, the same bits ---------------------
     gen_c = torch.Generator(device=dev).manual_seed(77)
     init7 = hex_env.initial_state(topo, K7_B, dev)
-    mid7 = init7
-    for _ in range(30):  # random plies with the plain env; finished games stay done
-        legal7 = hex_env.legal_mask(topo, mid7)
-        a7 = masked.sample(masked.draw_bits(gen_c, legal7.shape, dev),
-                           torch.zeros(legal7.shape, device=dev), legal7)
-        mid7, _ = hex_env.step(topo, mid7, a7)
-    yy, xx = torch.meshgrid(torch.arange(N), torch.arange(N), indexing="ij")
-    full_board = torch.where((yy + xx) % 2 == 0, -1, 1).to(torch.int8)[None].to(dev)
-    full = hex_env.state_from_boards(topo, full_board)  # no empty cell
-    mid7 = dataclasses.replace(mid7, **{
-        name: torch.cat([getattr(full, name), getattr(mid7, name)[1:]])
-        for name in ("stones", "labels", "to_move", "done", "winner", "empty", "move_count")})
-    n_done = int(mid7.done.sum())
-    if not 0 < n_done < K7_B or int(mid7.empty[0]) != 0:
-        fail(f"the K7 mid-game state has {n_done} finished rows and row 0 empty {mid7.empty[0]}")
+    mid7 = k7_mid_state(topo, K7_B, 30, gen_c)
     bits7 = masked.draw_bits(gen_c, (K7_T_BITS, K7_B, L), dev)
     for label, start in (("initial", init7), ("mid-game", mid7)):
-        k_out, k_games = step_kernel.random_rollout_cuda(topo, start, K7_T_BITS, bits=bits7)
-        t_out, t_games = step_kernel.random_rollout_twin(topo, start, K7_T_BITS, bits=bits7)
-        torch.cuda.synchronize()
-        for name in ("stones", "labels", "to_move", "done", "winner", "empty", "move_count"):
-            k, tw = getattr(k_out, name), getattr(t_out, name)
-            if not torch.equal(k, tw):
-                rows = int((k != tw).reshape(K7_B, -1).any(-1).sum())
-                fail(f"K7 from the {label} state: {name} differs from the twin in {rows} games")
-        if not torch.equal(k_games, t_games):
-            fail(f"K7 from the {label} state: games differ from the twin")
-        print(f"[K7 random rollout] from the {label} state ({int(start.done.sum())} done rows): "
-              f"state and games exactly the twin's over {K7_T_BITS} steps x {K7_B} games; "
-              f"{int(k_games.sum())} games finished, row 0 reset {int(k_games[0])} times")
-    if int(k_games[0]) < 1:
-        fail("K7 did not reset the full-board row")
+        k7_exact(topo, start, K7_T_BITS, bits7, label)
     k_ms = cuda_ms(lambda: step_kernel.random_rollout_cuda(topo, mid7, K7_T_BITS, bits=bits7), 10)
     p_ms = cuda_ms(lambda: step_kernel.random_rollout_twin(topo, mid7, K7_T_BITS, bits=bits7), 1)
     print(f"[K7 random rollout] with injected bits, {K7_T_BITS} steps: kernel {k_ms:.3f} ms, "
           f"twin {p_ms:.3f} ms")
     del bits7
+    for n7, b7, t7, plies in K7_OTHER_BOARDS:  # 256 lanes, and the smallest board of the tests
+        topo7 = get_topology(n7)
+        bits_o = masked.draw_bits(gen_c, (t7, b7, topo7.lanes), dev)
+        for label, start in (("initial", hex_env.initial_state(topo7, b7, dev)),
+                             ("mid-game", k7_mid_state(topo7, b7, plies, gen_c))):
+            k7_exact(topo7, start, t7, bits_o, label)
+        del bits_o
 
     # ---- 2f. K7 on its own Philox streams at the benchmark's shape ---------------------
-    k_out, k_games = step_kernel.random_rollout_cuda(topo, init7, K7_T, generator=gen_c)
+    # seeded from a CPU generator: a CUDA one's seed is read back with a
+    # synchronising .item() before each launch (the twin's bits stay on the card)
+    gen_p = torch.Generator().manual_seed(78)
+    k_out, k_games = step_kernel.random_rollout_cuda(topo, init7, K7_T, generator=gen_p)
     torch.cuda.synchronize()
     s0, s1 = k_out.stones[:, 0], k_out.stones[:, 1]
     if bool((s0 & s1).any()) or bool(s0[:, F:].any()) or bool(s1[:, F:].any()):
@@ -537,16 +767,26 @@ def main() -> int:
     if abs(float(kg.mean() - tg.mean())) >= 3 * se:
         fail(f"K7 (Philox) mean games {float(kg.mean())} vs the twin's {float(tg.mean())} "
              f"(3 standard errors {3 * se})")
-    k7_ms = cuda_ms(lambda: step_kernel.random_rollout_cuda(topo, init7, K7_T, generator=gen_c), 10)
+
+    def k7_call():
+        return step_kernel.random_rollout_cuda(topo, init7, K7_T, generator=gen_p)
+
+    k7_ms = cuda_ms(k7_call, 10)
+    k7_dev = device_ms(k7_call, KERNEL_NAMES["k7_random_rollout"], 10)
     k7_bytes = K7_B * (6 * L + 2 * 4) + K7_B * (6 * L + 4 * 4 + 1 + 4)  # state in; out + games
-    bnd, by = bound_ms(k7_bytes, K7_T * K7_B * L * K7_OPS_PER_LANE_STEP)
-    kernels["k7_random_rollout"] = dict(ms=k7_ms, plain_ms=k7_plain_ms, max_abs_err=0.0,
-                                        bound_ms=bnd, bound_by=by)
+    bnd, by = bound_ms(k7_bytes, K7_T * K7_B * k7_ops_per_game_step(F))
+    old_bnd, _ = bound_ms(k7_bytes, K7_T * K7_B * L * K7_OLD_OPS_PER_LANE_STEP)
+    kernels["k7_random_rollout"] = dict(ms=k7_ms, device_ms=k7_dev, plain_ms=k7_plain_ms,
+                                        max_abs_err=0.0, bound_ms=bnd, bound_by=by)
+    gpc, ctas_per_sm, regs = cuda_lib.env_plan("k7_random_rollout", K7_B, L)
     print(f"[K7 philox] {K7_T} steps x {K7_B} games: invariants hold; games per env "
           f"[{int(k_games.min())}, {int(k_games.max())}], mean {float(kg.mean()):.4f} vs the twin's "
-          f"{float(tg.mean()):.4f} on generator bits (3 SE {3 * se:.4f}); kernel {k7_ms:.3f} ms "
-          f"({K7_T * K7_B / k7_ms / 1e3:.0f} M env-steps/s), twin {k7_plain_ms:.1f} ms, "
-          f"bound {bnd:.4f} ms ({by})")
+          f"{float(tg.mean()):.4f} on generator bits (3 SE {3 * se:.4f}); call {k7_ms:.4f} ms, "
+          f"device {k7_dev:.4f} ms ({K7_T * K7_B / k7_ms / 1e3:.0f} M env-steps/s by call time), "
+          f"twin {k7_plain_ms:.1f} ms, bound {bnd:.4f} ms ({by}; {k7_ops_per_game_step(F)} "
+          f"operations per game-step, the earlier count over all {L} lanes gave {old_bnd:.4f} ms); "
+          f"{gpc} games per CTA, {ctas_per_sm} CTAs resident per SM ({gpc * ctas_per_sm} games), "
+          f"{regs} registers a thread")
 
     # ---- 3. main path: the preset's fused rollout ----------------------------------
     runner = SelfplayRunner(topo, model, cfg, device=dev)
@@ -624,11 +864,13 @@ def main() -> int:
     if not (torch.equal(k_adv, t_adv) and torch.equal(k_ret, t_ret)):
         fail(f"K5 differs from its twin by {max(max_err(k_adv, t_adv), max_err(k_ret, t_ret))}")
     k_ms = cuda_ms(lambda: gae_kernel.compute_gae_cuda(*gae_args), 200)
+    k_dev = device_ms(lambda: gae_kernel.compute_gae_cuda(*gae_args), KERNEL_NAMES["k5_gae"], 200)
     p_ms = cuda_ms(lambda: gae_kernel.compute_gae_twin(*gae_args), 10)
     bnd, by = bound_ms(T * B * (4 + 4 + 1) + 4 * B + 2 * T * B * 4, 0)
-    kernels["k5_gae"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, bound_ms=bnd, bound_by=by)
+    kernels["k5_gae"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=0.0,
+                             bound_ms=bnd, bound_by=by)
     print(f"[K5 gae] exact on {T}x{B} rollout data ({int(tr.done.sum())} dones); "
-          f"kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms")
+          f"call {k_ms:.4f} ms, device {k_dev:.5f} ms, twin {p_ms:.4f} ms")
 
     # ---- 5b. K6 PPO sweep vs its twin at the preset's shapes ---------------------------
     n, mbs = T * B, tcfg_ppo.minibatch_size
@@ -675,6 +917,8 @@ def main() -> int:
                                            list(fp.values()) + list(fstats)):
         fail("the fast sweep entry gave a wrong count or non-finite output")
     k_ms = cuda_ms(lambda: pkk.sweep(pol, tcfg_ppo, *packed3, obs6, flt6, idx, bias), 3)
+    k_dev = device_ms(lambda: pkk.sweep(pol, tcfg_ppo, *packed3, obs6, flt6, idx, bias),
+                      KERNEL_NAMES["k6_ppo"], 3)
     p_ms = cuda_ms(lambda: pkk.sweep(twin, tcfg_ppo, *packed3, obs6, flt6, idx, bias), 1)
     L = d.n_layers
     fwd = 2 * (d.F * d.H + (L - 1) * d.H * d.H + d.H * A) + 2 * (d.F * d.H + (L - 1) * d.H * d.H + d.H)
@@ -682,8 +926,8 @@ def main() -> int:
     S = packed3[0].numel()
     n_bytes = n * F + n * 16 + G * mbs * 4 + 6 * S * 4 + G * 2 * 4 + G * 8 * 4
     bnd, by = bound_ms(n_bytes, flops)
-    kernels["k6_ppo"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(errs), bound_ms=bnd,
-                             bound_by=by)
+    kernels["k6_ppo"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=max(errs),
+                             bound_ms=bnd, bound_by=by)
     # the per-step cost against the grid: the same 80 steps on a prefix of each minibatch
     per_step = []
     for mb_s in (32, 512, mbs):
@@ -695,7 +939,7 @@ def main() -> int:
     print(f"[K6 ppo] {G}-step sweep from count {count0}: abs errors p {errs[0]:.3g}, "
           f"m {errs[1]:.3g}, v {errs[2]:.3g}, mean stats {errs[3]:.3g}; relative errors "
           + ", ".join(f"{x:.3g}" for x in rel) + f"; bitwise repeatable; "
-          f"fast entry count {fopt.count}; kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms, "
+          f"fast entry count {fopt.count}; call {k_ms:.3f} ms, device {k_dev:.4f} ms, twin {p_ms:.3f} ms, "
           f"{flops / 1e9:.2f} GFLOP")
     print("[K6 ppo] per grad step: " + ", ".join(per_step))
 
@@ -945,7 +1189,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
         })
     smi = subprocess.run(
@@ -962,4 +1207,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--split-only":
         sys.exit(split_only(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--env-kernels":
+        sys.exit(env_only(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -89,8 +89,12 @@ def bench_composable(topo, impl: str, repeats: int, device, batch: int, steps: i
 
 
 def bench_fused(topo, repeats: int, device, batch: int, steps: int, calls: int):
-    """K7: every step of a call in one launch (its twin on a CPU device)."""
-    gen = torch.Generator(device=device).manual_seed(0)
+    """K7: every step of a call in one launch (its twin on a CPU device).
+
+    The generator lies on the CPU: it only seeds each launch's Philox
+    streams (``cuda_lib.philox_seed``), and a CUDA generator's seed would be
+    read back with a synchronising ``.item()`` before every launch."""
+    gen = torch.Generator().manual_seed(0)
 
     def run(state):
         return step_kernel.random_rollout(topo, state, steps, generator=gen)[0]

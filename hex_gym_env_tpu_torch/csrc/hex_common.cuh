@@ -3,12 +3,13 @@
 // decoding, the flat-label union with its win test, the MLP towers, and the
 // masked Gumbel-max sample with its log-softmax.
 //
-// Two families.  The block-level functions (K1-K3, K7): one CTA holds one
-// game; functions that take shared-memory arrays are called by every thread
-// of the CTA with the same per-game scalars, so the scalars they return are
-// the same on every thread and the control flow around their
-// __syncthreads() stays uniform.  The warp-level functions (warp_*, K4):
-// one warp plays one game, lane l owns entries l, l + 32, ...; they
+// Two families.  The block-level functions (K2, K3, and K6's reductions):
+// one CTA holds one game; functions that take shared-memory arrays are
+// called by every thread of the CTA with the same per-game scalars, so the
+// scalars they return are the same on every thread and the control flow
+// around their __syncthreads() stays uniform.  The warp-level functions
+// (warp_*: K1, K4, K7): one warp plays one game, lane l owns entries l,
+// l + 32, ... of any length; they
 // synchronise with __syncwarp() and shuffles only, so the other games of a
 // CTA never wait for this one; every lane gets the same scalars back.  The
 // game's team of warps shares its forward passes (team_mlp_towers) behind
@@ -228,61 +229,13 @@ __device__ inline int masked_sample(float* logits, const uint8_t* legal, int A, 
 }
 
 // ---------------------------------------------------------------------------
-// Flat-label union (ops/labels.py place_stone).  st0/st1 (L bytes) and lab
-// (L ints) are the game's stones and labels in shared memory; thread t owns
-// lane t (blockDim.x >= L).  Places seat s's stone at world cell c when act
-// (c must then lie in [0, L)), relabels every node of the merged group to c,
-// and returns the win: the mover's two edge virtuals share a group after the
-// move.  With pre_connected false only a join made by this stone's group
-// counts (K7's test), not edges that were connected before the move.  act
-// is uniform over the CTA, so the early return is too.
+// The game board of the flat-label union (ops/labels.py): n x n cells, then
+// the four edge virtuals, lanes F .. F + 3, then padding up to L lanes.
 // ---------------------------------------------------------------------------
 
 struct Board {
   int n, F, L;
 };
-
-__device__ inline bool place_stone(const Board& g, uint8_t* st0, uint8_t* st1, int* lab, int s,
-                                   int c, bool act, bool pre_connected = true) {
-  if (!act) return false;
-  const int n = g.n;
-  const uint8_t* mine = s == 0 ? st0 : st1;
-  const int y = c / n, x = c - (c / n) * n;
-  const bool top = y > 0, bot = y < n - 1, lft = x > 0, rgt = x < n - 1;
-  const int offs[6] = {-n, -n + 1, -1, 1, n - 1, n};
-  const bool nb_ok[6] = {top, top && rgt, lft, rgt, bot && lft, bot};
-  const int e0 = g.F + 2 * s;
-  const int lab_e0 = lab[e0], lab_e1 = lab[e0 + 1];
-
-  int slot[8];
-  bool elig[8];
-  for (int k = 0; k < 6; ++k) {
-    const int id = min(max(c + offs[k], 0), g.L - 1);  // invalid slots stay in bounds
-    slot[k] = lab[id];
-    elig[k] = nb_ok[k] && mine[id];
-  }
-  slot[6] = lab_e0;
-  slot[7] = lab_e1;
-  elig[6] = s == 0 ? y == 0 : x == 0;
-  elig[7] = s == 0 ? y == n - 1 : x == n - 1;
-
-  bool joined0 = false, joined1 = false;
-  for (int k = 0; k < 8; ++k) {
-    joined0 |= elig[k] && slot[k] == lab_e0;
-    joined1 |= elig[k] && slot[k] == lab_e1;
-  }
-  const int t = threadIdx.x;
-  const int own = t < g.L ? lab[t] : 0;
-  __syncthreads();  // every slot label is read before any label is written
-  if (t < g.L) {
-    bool match = false;
-    for (int k = 0; k < 8; ++k) match |= elig[k] && own == slot[k];
-    if (match) lab[t] = c;
-  }
-  if (t == c) (s == 0 ? st0 : st1)[c] = 1;
-  __syncthreads();
-  return (joined0 && joined1) || (pre_connected && lab_e0 == lab_e1);
-}
 
 // ---------------------------------------------------------------------------
 // Warp-level versions: one warp per game (see the top of this file)
@@ -457,60 +410,89 @@ __device__ inline int warp_masked_sample(float* logits, const uint8_t* legal, in
   return action;
 }
 
-// place_stone for one warp (L <= 128: lane l owns lanes l + 32q, q < 4).
-// Every slot label and every owned label is read before a __syncwarp(),
-// and only then is any label written: the read-all-then-write rule of the
-// union.  act must be the same on every lane.  Ends with __syncwarp().
-constexpr int kWarpLanes = 4;  // board lanes per thread
-
+// The flat-label union (ops/labels.py place_stone) for one warp: st0/st1
+// (L bytes) and lab (L ints) are the game's stones and labels in shared
+// memory, and lane l owns board lanes l, l + 32, ... (any L).  Places seat
+// s's stone at world cell c when act (c must then lie in [0, L)), relabels
+// every node of the merged group among lanes [0, lanes) to c, and returns
+// the win: the mover's two edge virtuals share a group after the move.  With
+// pre_connected false only a join made by this stone's group counts (K7's
+// test), not edges that were connected before the move.
+//
+// Lane l reads slot label l mod 8 (lanes 8-31 repeat lanes 0-7 at no cost
+// to the warp); the warp votes on them and shares the eight by shuffles,
+// and only after that does any lane write: the read-all-then-write rule of
+// the union.  A lane's own labels need no such care, since no other lane
+// writes them, so the relabel loops over any number of lanes per thread
+// with nothing held in registers.  An ineligible slot holds -1, which no
+// label equals, so with no eligible slot (a stone with no friendly
+// neighbour, off the mover's edges) the relabel would change nothing and is
+// skipped.  act must be the same on every lane.
+// Ends with __syncwarp().
+//
+// lanes: the lanes a relabel may touch.  Every slot label lies in
+// [0, F + 4) whenever every move lands on a cell (K4, K7), so F + 4 covers
+// the real lanes and a padding lane, which holds its own index, is never
+// relabelled; K1 passes L, since a mover-frame action in [F, L) lands on a
+// padding or virtual lane and is played there, as in the JAX package.
 __device__ inline bool warp_place_stone(const Board& g, uint8_t* st0, uint8_t* st1, int* lab,
-                                        int s, int c, bool act) {
+                                        int s, int c, bool act, bool pre_connected, int lanes) {
   if (!act) return false;
   const int n = g.n, lane = lane_id();
   const uint8_t* mine = s == 0 ? st0 : st1;
-  const int y = c / n, x = c - (c / n) * n;
-  const bool top = y > 0, bot = y < n - 1, lft = x > 0, rgt = x < n - 1;
-  const int offs[6] = {-n, -n + 1, -1, 1, n - 1, n};
-  const bool nb_ok[6] = {top, top && rgt, lft, rgt, bot && lft, bot};
+  // c / n, exact: c + 0.5 lies at least 0.5 / n from a multiple of n, far
+  // beyond __fdividef's error for any c below 2^20
+  const int y = __float2int_rd(__fdividef(static_cast<float>(c) + 0.5f, static_cast<float>(n)));
+  const int x = c - y * n;
   const int e0 = g.F + 2 * s;
   const int lab_e0 = lab[e0], lab_e1 = lab[e0 + 1];
 
-  int slot[8];
-  bool elig[8];
-  for (int k = 0; k < 6; ++k) {
-    const int id = min(max(c + offs[k], 0), g.L - 1);  // invalid slots stay in bounds
-    slot[k] = lab[id];
-    elig[k] = nb_ok[k] && mine[id];
+  // Lane k (mod 8) reads slot k once for the warp: the neighbours (dy, dx)
+  // = (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), each only where
+  // its row and column step stay on the board (a cell of row n - 1 has no
+  // lower neighbour, ...), at index c + n dy + dx clamped into [0, L), then
+  // the mover's two edge virtuals where c touches them.
+  const int k = lane & 7;
+  int my_slot;
+  if (k < 6) {
+    const int dy = (k >> 1) - 1;
+    const int dx = ((0x489 >> (2 * k)) & 3) - 1;
+    const bool ok = (dy >= 0 || y > 0) && (dy <= 0 || y < n - 1) && (dx >= 0 || x > 0) &&
+                    (dx <= 0 || x < n - 1);
+    const int id = min(max(c + dy * n + dx, 0), g.L - 1);
+    my_slot = ok && mine[id] ? lab[id] : -1;
+  } else if (k == 6) {
+    my_slot = (s == 0 ? y == 0 : x == 0) ? lab_e0 : -1;
+  } else {
+    my_slot = (s == 0 ? y == n - 1 : x == n - 1) ? lab_e1 : -1;
   }
-  slot[6] = lab_e0;
-  slot[7] = lab_e1;
-  elig[6] = s == 0 ? y == 0 : x == 0;
-  elig[7] = s == 0 ? y == n - 1 : x == n - 1;
-
-  bool joined0 = false, joined1 = false;
-  for (int k = 0; k < 8; ++k) {
-    joined0 |= elig[k] && slot[k] == lab_e0;
-    joined1 |= elig[k] && slot[k] == lab_e1;
-  }
-  int own[kWarpLanes];
+  const bool joined0 = __any_sync(kFullMask, my_slot == lab_e0);
+  const bool joined1 = __any_sync(kFullMask, my_slot == lab_e1);
+  if (__any_sync(kFullMask, my_slot >= 0)) {  // else no label matches: nothing to relabel
+    int slot[8];
 #pragma unroll
-  for (int q = 0; q < kWarpLanes; ++q) {
-    const int t = lane + 32 * q;
-    own[q] = t < g.L ? lab[t] : 0;
-  }
-  __syncwarp();  // every slot label is read before any label is written
-#pragma unroll
-  for (int q = 0; q < kWarpLanes; ++q) {
-    const int t = lane + 32 * q;
-    if (t < g.L) {
+    for (int j = 0; j < 8; ++j) slot[j] = __shfl_sync(kFullMask, my_slot, j);
+    __syncwarp();  // every slot label is read before any label is written
+    for (int t = lane; t < lanes; t += 32) {
+      const int own = lab[t];
       bool match = false;
-      for (int k = 0; k < 8; ++k) match |= elig[k] && own[q] == slot[k];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) match |= own == slot[j];
       if (match) lab[t] = c;
     }
   }
-  if (lane == 0) (s == 0 ? st0 : st1)[c] = 1;
+  if (lane == 0) (s == 0 ? st0 : st1)[c] = 1;  // after the votes: every slot is read
   __syncwarp();
-  return (joined0 && joined1) || lab_e0 == lab_e1;
+  return (joined0 && joined1) || (pre_connected && lab_e0 == lab_e1);
+}
+
+// The warp's argmax of non-negative integer scores, ties to the lowest
+// index: each lane passes its best (score, index), the lowest index among
+// its own best scores; every lane gets the winner's index.  Two redux.sync
+// (sm_80+) in place of warp_argmax's five shuffle rounds.
+__device__ __forceinline__ int warp_argmax_u32(unsigned v, int i) {
+  const unsigned top = __reduce_max_sync(kFullMask, v);
+  return __reduce_min_sync(kFullMask, v == top ? i : INT_MAX);
 }
 
 }  // namespace hex

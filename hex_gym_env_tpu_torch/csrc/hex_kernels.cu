@@ -6,22 +6,25 @@
 // Never with --use_fast_math: tanhf/logf/expf must stay the library ones,
 // or the kernels drift from their PyTorch twins.
 //
-// Games are independent: K1-K3 and K7 run one game per CTA, so the grid is
-// the batch; K4 runs several games per CTA, a team of warps each.  Each
+// Games are independent: K2 and K3 run one game per CTA, so the grid is
+// the batch; K1 and K7 run a warp per game and K4 a team of warps per game,
+// several games per CTA.  Each
 // entry launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() of its launch.
 //
 // Randomness: each kernel takes an optional bits array in the JAX package's
 // interpret-mode layout and maps bits to samples exactly as the JAX kernels
 // do.  Without it, every thread draws from its own Philox stream
-// (curand_init(seed, row * blockDim + thread, 0); K4: curand_init(seed,
-// game * 32 + lane, 0)); the wrapper draws a fresh seed per launch from the
+// (curand_init(seed, row * blockDim + thread, 0); K4 and K7: curand_init(
+// seed, game * 32 + lane, 0)); the wrapper draws a fresh seed per launch from the
 // caller's generator, so no two launches share a stream and a restored
 // generator replays the streams.
 // That is this port's stream deviation, as the TPU hardware PRNG is the JAX
 // package's.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "hex_common.cuh"
 
@@ -40,13 +43,73 @@ __device__ __forceinline__ void philox_init(curandStatePhilox4_32_10_t* st,
 }
 
 // ===========================================================================
+// K1 and K7 share a launch shape: one warp per game, games_per_cta games
+// (warps) per CTA, each game's labels (L ints) and stones (2L bytes) in its
+// own slice of shared memory, and no block barrier.  env_games_per_cta picks
+// the games per CTA: at most kEnvMaxGames, and no more than keep one CTA per
+// SM where B allows, so a small batch is not a grid of a few CTAs (B = 30
+// runs 30 CTAs of one warp, B = 256 256 CTAs, B = 8192 1024 CTAs of eight).
+// Both write their outputs into two buffers (ops/step_kernel.py carves the
+// state's tensors from them as views):
+//   ints  = labels (B, L), to_move, winner, empty, move_count (B each), then
+//           K1's rewards (B, 2) as float32 or K7's games (B);
+//   bytes = stones (B, 2, L), done (B).
+// ===========================================================================
+
+constexpr int kEnvMaxGames = 8;  // games (warps) per CTA of K1 and K7
+
+__host__ __device__ inline int env_game_bytes(int L) { return L * (static_cast<int>(sizeof(int)) + 2); }
+
+// One game's slice: labels (L ints), then the two seats' stones (L bytes
+// each).  L is a multiple of 128 (the topology's lanes), so a slice is
+// 16-byte aligned and the warp moves a game as int4 labels and 4-byte
+// words of stones, lane l the lanes 4l .. 4l + 3 of every 128 (one
+// round trip at L = 128); the wrapper hands in 16-byte aligned arrays.
+struct EnvSlice {
+  int* lab;
+  uint8_t* st0;
+  uint8_t* st1;
+  __device__ EnvSlice(void* smem, int slot, int L) {
+    lab = reinterpret_cast<int*>(static_cast<char*>(smem) + static_cast<long long>(slot) * env_game_bytes(L));
+    st0 = reinterpret_cast<uint8_t*>(lab + L);
+    st1 = st0 + L;
+  }
+  // game b's labels and stones from the (B, L) and (B, 2, L) arrays
+  __device__ void load(const int* labels, const uint8_t* stones, long long b, int L) {
+    const int4* lsrc = reinterpret_cast<const int4*>(labels + b * L);
+    const uint32_t* ssrc = reinterpret_cast<const uint32_t*>(stones + 2 * b * L);
+#pragma unroll 2
+    for (int i = hex::lane_id(); i < L / 4; i += 32) {
+      reinterpret_cast<int4*>(lab)[i] = lsrc[i];
+      reinterpret_cast<uint32_t*>(st0)[i] = ssrc[i];
+      reinterpret_cast<uint32_t*>(st1)[i] = ssrc[L / 4 + i];
+    }
+    __syncwarp();
+  }
+  __device__ void store(int* labels, uint8_t* stones, long long b, int L) const {
+    int4* ldst = reinterpret_cast<int4*>(labels + b * L);
+    uint32_t* sdst = reinterpret_cast<uint32_t*>(stones + 2 * b * L);
+#pragma unroll 2
+    for (int i = hex::lane_id(); i < L / 4; i += 32) {
+      ldst[i] = reinterpret_cast<const int4*>(lab)[i];
+      sdst[i] = reinterpret_cast<const uint32_t*>(st0)[i];
+      sdst[L / 4 + i] = reinterpret_cast<const uint32_t*>(st1)[i];
+    }
+  }
+};
+
+// ===========================================================================
 // K1 — env step.  Replaces ops/pallas_step.py:_step_kernel (entry `step`).
-// One game per CTA, one thread per lane (blockDim = L).  Bound: bytes — per
-// game it reads 2L stone bytes + 4L label bytes + 6 scalars and writes the
-// same plus 2 rewards, ~1.6 KB at L = 128; at B = 256 that is 0.12 us of
-// HBM time, so the launch itself dominates.  The design keeps the game in
-// shared memory for the read-all-then-write label union and writes out of
-// place, so the kernel never waits on more than one game's data.
+// One warp per game (the shared launch shape above): the warp stages its
+// game in shared memory, decodes the move, applies hex::warp_place_stone
+// (pre-connected term on, relabelling all L lanes) and writes the game out
+// of place.  Bound: bytes — per game 6L + 22 bytes in (stones, labels, five
+// ints, done, action, active) and 6L + 25 out (the state and two rewards),
+// ~1.6 KB at L = 128; at B = 256 that is 0.12 us of HBM time, so the launch
+// itself dominates.  The earlier design ran one game per CTA of L threads,
+// two __syncthreads() in the union, and at 7x7 75 of each CTA's 128 threads
+// had no real lane; a warp per game keeps every thread on lanes of its game
+// and lets a CTA hold up to eight games.
 // ===========================================================================
 
 struct StepArgs {
@@ -59,55 +122,43 @@ struct StepArgs {
   const int* moves;
   const int* actions;     // (B,) mover frame
   const uint8_t* active;  // (B,) or null (all active)
-  uint8_t* o_stones;
-  int* o_labels;
-  int* o_to_move;
-  uint8_t* o_done;
-  int* o_winner;
-  int* o_empty;
-  int* o_moves;
-  float* o_rewards;  // (B, 2)
+  int* o_ints;            // see the launch shape above
+  uint8_t* o_bytes;
   Board g;
+  int B, games_per_cta;
 };
 
-__global__ void step_kernel(StepArgs a) {
-  extern __shared__ int smem_step[];
-  const int L = a.g.L, b = blockIdx.x, t = threadIdx.x;
-  int* lab = smem_step;
-  uint8_t* st0 = reinterpret_cast<uint8_t*>(lab + L);
-  uint8_t* st1 = st0 + L;
-  if (t < L) {
-    lab[t] = a.labels[b * L + t];
-    st0[t] = a.stones[(2 * b) * L + t];
-    st1[t] = a.stones[(2 * b + 1) * L + t];
-  }
-  __syncthreads();
-
-  const int s = a.to_move[b];
+__global__ void __launch_bounds__(32 * kEnvMaxGames) step_kernel(StepArgs a) {
+  extern __shared__ __align__(16) int smem_env[];
+  const int L = a.g.L, lane = hex::lane_id(), slot = threadIdx.x >> 5;
+  const int b = blockIdx.x * a.games_per_cta + slot;
+  if (b >= a.B) return;  // a whole warp: no barrier waits for it
+  const int s = a.to_move[b];  // the scalars' loads in flight with the game's
   const bool was_done = a.done[b] != 0;
   const bool active = a.active == nullptr || a.active[b] != 0;
   const int c = hex::to_world(a.actions[b], s, a.g.n);
-  const bool valid = c >= 0 && c < L && !(st0[c] | st1[c]);
+  EnvSlice game(smem_env, slot, L);
+  game.load(a.labels, a.stones, b, L);
+  const bool valid = c >= 0 && c < L && !(game.st0[c] | game.st1[c]);
   const bool invalid_now = !valid && !was_done && active;
   const bool act = valid && !was_done && active;
-  const bool win = act && hex::place_stone(a.g, st0, st1, lab, s, c, act);
+  const bool win = hex::warp_place_stone(a.g, game.st0, game.st1, game.lab, s, c, act, true, L);
 
-  if (t < L) {
-    a.o_labels[b * L + t] = lab[t];
-    a.o_stones[(2 * b) * L + t] = st0[t];
-    a.o_stones[(2 * b + 1) * L + t] = st1[t];
-  }
-  if (t == 0) {
+  const long long BL = static_cast<long long>(a.B) * L;
+  game.store(a.o_ints, a.o_bytes, b, L);
+  if (lane == 0) {
+    int* o = a.o_ints + BL;  // to_move, winner, empty, move_count, rewards
     const int empty = a.empty[b] - (act ? 1 : 0);
     const bool draw = act && !win && empty <= 0;
-    a.o_empty[b] = empty;
-    a.o_done[b] = was_done || win || draw || invalid_now;
-    a.o_winner[b] = win ? s : draw ? 2 : invalid_now ? 3 : a.winner[b];
-    a.o_to_move[b] = (was_done || !active) ? s : 1 - s;
-    a.o_moves[b] = a.moves[b] + (act ? 1 : 0);
+    o[b] = (was_done || !active) ? s : 1 - s;
+    o[a.B + b] = win ? s : draw ? 2 : invalid_now ? 3 : a.winner[b];
+    o[2 * a.B + b] = empty;
+    o[3 * a.B + b] = a.moves[b] + (act ? 1 : 0);
+    float* rewards = reinterpret_cast<float*>(o + 4 * a.B);
     const float r = win ? 1.0f : 0.0f;
-    a.o_rewards[2 * b] = s == 0 ? r : -r;
-    a.o_rewards[2 * b + 1] = s == 1 ? r : -r;
+    rewards[2 * b] = s == 0 ? r : -r;
+    rewards[2 * b + 1] = s == 1 ? r : -r;
+    a.o_bytes[2 * BL + b] = was_done || win || draw || invalid_now;
   }
 }
 
@@ -499,7 +550,8 @@ __global__ void rollout_kernel(RolloutArgs a) {
 
     // ---- 2. agent move ---------------------------------------------------
     const bool act1 = !done;
-    const bool win1 = hex::warp_place_stone(g, st0, st1, lab, tm, hex::to_world(act_a, tm, g.n), act1);
+    const bool win1 = hex::warp_place_stone(g, st0, st1, lab, tm, hex::to_world(act_a, tm, g.n), act1,
+                                            true, L);
     if (act1) {
       empty -= 1;
       done = win1 || empty <= 0;
@@ -525,7 +577,8 @@ __global__ void rollout_kernel(RolloutArgs a) {
     const int act_o = hex::warp_masked_sample(y, legal, A, true, obits, nullptr);
     roll_mark(tk, 5, lane == 0);
     const bool act2 = !done;
-    const bool win2 = hex::warp_place_stone(g, st0, st1, lab, tm, hex::to_world(act_o, tm, g.n), act2);
+    const bool win2 = hex::warp_place_stone(g, st0, st1, lab, tm, hex::to_world(act_o, tm, g.n), act2,
+                                            true, L);
     if (act2) {
       empty -= 1;
       done = win2 || empty <= 0;
@@ -575,7 +628,7 @@ __global__ void rollout_kernel(RolloutArgs a) {
       }
       act_f = hex::warp_argmax(bv, bi);
       const bool act3 = m_reset && seat == 1;
-      hex::warp_place_stone(g, st0, st1, lab, tm, act_f, act3);  // seat 0 opens: world frame
+      hex::warp_place_stone(g, st0, st1, lab, tm, act_f, act3, true, L);  // seat 0 opens: world frame
       if (act3) {
         empty -= 1;
         tm = 1 - tm;
@@ -614,28 +667,56 @@ __global__ void rollout_kernel(RolloutArgs a) {
 // K7 — the fused random-legal rollout.  Replaces
 // ops/pallas_step.py:_random_rollout_kernel (entry `random_rollout`).  T
 // uniform-random legal moves per game with auto-reset, for the env-throughput
-// benchmark.  One game per CTA, one thread per lane (blockDim = L); the time
-// loop runs inside the CTA and the game's stones and labels stay in shared
-// memory for all T steps, as in K4.
+// benchmark.  One warp per game (the launch shape of K1); the time loop runs
+// inside the warp and the game's stones and labels stay in its slice of
+// shared memory for all T steps.
 //
-// Per step: the move is the argmax over lanes of (bits >> 8) + 1 on empty
-// real cells and 0 elsewhere (lowest lane on ties; lane 0 when no cell is
-// empty, as on a full board handed in), placed in the world frame; the
-// union through hex::place_stone with the win test joined_e0 & joined_e1
-// only (no pre-connected term, unlike K1); on a win or a full board the game
-// resets to zero stones, identity labels over all L lanes, seat 0 to move
-// and num_cells empty, and `games` counts the resets.  Only to_move and
-// empty are read of the per-game scalars (a game that came in done is
-// played on); done 0, winner -1 and move_count 0 are written, as the JAX
-// kernel's meta.
+// Per step: the move is the argmax over cells of (bits >> 8) + 1 on empty
+// cells and 0 elsewhere (lowest cell on ties; cell 0 when no cell is empty,
+// as on a full board handed in), placed in the world frame.  Lane l scores
+// its cells l + 32q, q < nq = ceil(F / 32), in ascending order, keeping the
+// first best, from (0, l); then hex::warp_argmax_u32 takes the warp's best
+// with ties to the lowest index, so the result is the block argmax's over
+// all L lanes.  The score is an integer below 2^24 + 1, as exact as the JAX
+// kernel's float32.  A lane keeps its cells' occupancy as bits of a register
+// (so F <= 1024, which the entry checks), set by the lane that owns the
+// placed cell.  The union is hex::warp_place_stone over the F + 4 real lanes
+// with the win test joined_e0 & joined_e1 only (no pre-connected term,
+// unlike K1); on a win or a full board the game resets to zero stones and
+// identity labels over all L lanes, seat 0 to move and num_cells empty, and
+// `games` counts the resets.  Only to_move and empty are read of the
+// per-game scalars (a game that came in done is played on); done 0, winner
+// -1 and move_count 0 are written, as the JAX kernel's meta.  Each lane
+// holds a copy of the game's scalars, updated identically, so no lane waits
+// on another for them.
 //
-// Bound: operations.  Per game and step each of the L lanes needs its score
-// and its max (2), the relabel's 8 compares and 8 ors (16) and the label
-// select (1): 19 L 32-bit integer operations, 1.0e10 at B = 8192, T = 512,
-// L = 128, 0.15 ms at the fp32 rate (no integer op runs faster).  Bytes:
-// the state in and out, ~13 MB at that shape, 4 us (plus 4 T B L with
-// injected bits).  This simple design is latency-bound: five barriers per
-// step (two in the argmax, two in the union, one in the next argmax).
+// Randomness: injected bits keep the (T, B, L) layout, lane l reading the
+// words of its cells.  Without them each lane draws from its own Philox
+// stream, curand_init(seed, game * 32 + lane, 0) as K4's, nq words a step
+// in q order, whether or not the cell exists, so every lane of the warp
+// refills curand's four-word buffer at the same step and the refill never
+// diverges.  The production stream differs from the one-game-per-CTA
+// kernel's (which drew one word per thread and lane, padding included);
+// its distribution, uniform over the empty cells, does not.
+//
+// Bound: operations.  Per game and step: the score and the max over the F
+// cells (2F) and, over the F + 4 real lanes, the relabel's 8 compares and
+// 8 ors and the select (17 (F + 4)): 999 32-bit integer operations at 7x7,
+// 4.2e9 at B = 8192, T = 512, 0.063 ms at the fp32 rate (no integer op runs
+// faster).  An earlier count took 19 operations on every one of the L = 128
+// lanes, padding included, and gave 0.152 ms for the same work.  Bytes: the
+// state in and out, ~13 MB at that shape, 4 us (plus 4 T B L with injected
+// bits).
+//
+// The earlier design ran one game per CTA of L threads: at 7x7 75 of the
+// 128 threads had no real lane, every step waited on five block barriers
+// (two in the argmax, two in the union, one in the next argmax), and at
+// most 16 games fit on an SM; it took 6.3-6.4 ms at that shape.  Now a step
+// has no block barrier, only warp votes, shuffles and two redux.sync, and
+// every thread holds real cells.  ptxas gives 47 registers a thread, so 5
+// CTAs of 8 games (40 games) are resident per SM; capping it at 40
+// registers for 48 games per SM did not run faster, since the warps issue
+// most of the time.  About 1.3-1.5 ms at that shape (H100 SXM 80 GB, 700 W).
 // ===========================================================================
 
 struct RandomRolloutArgs {
@@ -645,69 +726,77 @@ struct RandomRolloutArgs {
   const int* empty;
   const uint32_t* bits;  // (T, B, L) or null: Philox
   unsigned long long seed;
-  uint8_t* o_stones;
-  int* o_labels;
-  int* o_to_move;
-  uint8_t* o_done;
-  int* o_winner;
-  int* o_empty;
-  int* o_moves;
-  int* o_games;  // (B,) resets
+  int* o_ints;  // see the launch shape above; games after move_count
+  uint8_t* o_bytes;
   Board g;
-  int B, T;
+  int B, T, games_per_cta;
 };
 
-__global__ void random_rollout_kernel(RandomRolloutArgs a) {
-  extern __shared__ int smem_rr[];
-  __shared__ Scratch red;
+__global__ void __launch_bounds__(32 * kEnvMaxGames) random_rollout_kernel(RandomRolloutArgs a) {
+  extern __shared__ __align__(16) int smem_env[];
   const Board& g = a.g;
-  const int b = blockIdx.x, t = threadIdx.x, L = g.L, F = g.F;
-  int* lab = smem_rr;
-  uint8_t* st0 = reinterpret_cast<uint8_t*>(lab + L);
-  uint8_t* st1 = st0 + L;
-  lab[t] = a.labels[b * L + t];
-  st0[t] = a.stones[(2 * b) * L + t];
-  st1[t] = a.stones[(2 * b + 1) * L + t];
+  const int L = g.L, F = g.F, lane = hex::lane_id(), slot = threadIdx.x >> 5;
+  const int b = blockIdx.x * a.games_per_cta + slot;
+  if (b >= a.B) return;  // a whole warp: no barrier waits for it
+  EnvSlice game(smem_env, slot, L);
+  game.load(a.labels, a.stones, b, L);
   int s = a.to_move[b], empty = a.empty[b], games = 0;
+  // the lane's cells lane + 32q, q < nq, and their occupancy as the bits of
+  // a register (F <= 1024)
+  const int nq = (F + 31) / 32;
+  unsigned occ = 0u;
+  for (int q = 0; q < nq; ++q) {
+    const int t = lane + 32 * q;
+    if (t < F && (game.st0[t] | game.st1[t])) occ |= 1u << q;
+  }
 
   const bool injected = a.bits != nullptr;
   curandStatePhilox4_32_10_t st;
-  if (!injected) philox_init(&st, a.seed);
-  __syncthreads();
+  if (!injected) curand_init(a.seed, static_cast<unsigned long long>(b) * 32 + lane, 0, &st);
 
   for (int step = 0; step < a.T; ++step) {
-    const uint32_t w =
-        injected ? a.bits[(static_cast<long long>(step) * a.B + b) * L + t] : curand(&st);
-    // (bits >> 8) + 1 <= 2^24 is exact in float32, as in the JAX kernel
-    const bool free_cell = t < F && !(st0[t] | st1[t]);
-    const float score = free_cell ? static_cast<float>((w >> 8) + 1u) : 0.0f;
-    const int c = hex::block_argmax(score, t, red);
-
-    const bool joined = hex::place_stone(g, st0, st1, lab, s, c, true, false);
+    const uint32_t* w = injected ? a.bits + (static_cast<long long>(step) * a.B + b) * L : nullptr;
+    unsigned best = 0u;  // (0, lane): loses to every empty cell and to lane 0's own (0, 0)
+    int bi = lane;
+    for (int q = 0; q < nq; ++q) {  // every lane draws nq words a step: refills in step
+      const int t = lane + 32 * q;
+      const uint32_t word = injected ? (t < F ? w[t] : 0u) : curand(&st);
+      const unsigned score = (t < F && !((occ >> q) & 1u)) ? (word >> 8) + 1u : 0u;
+      if (score > best) {
+        best = score;
+        bi = t;
+      }
+    }
+    const int c = hex::warp_argmax_u32(best, bi);
+    const bool joined = hex::warp_place_stone(g, game.st0, game.st1, game.lab, s, c, true, false, F + 4);
+    if ((c & 31) == lane) occ |= 1u << (c >> 5);
     empty -= 1;
-    if (joined || empty <= 0) {
-      lab[t] = t;
-      st0[t] = 0;
-      st1[t] = 0;
+    if (joined || empty <= 0) {  // the same on every lane
+      for (int t = lane; t < L; t += 32) {
+        game.lab[t] = t;
+        game.st0[t] = 0;
+        game.st1[t] = 0;
+      }
+      __syncwarp();
+      occ = 0u;
       s = 0;
       empty = F;
       ++games;
     } else {
       s = 1 - s;
     }
-    // the next step reads other lanes only after block_argmax's barriers
   }
 
-  a.o_labels[b * L + t] = lab[t];
-  a.o_stones[(2 * b) * L + t] = st0[t];
-  a.o_stones[(2 * b + 1) * L + t] = st1[t];
-  if (t == 0) {
-    a.o_to_move[b] = s;
-    a.o_done[b] = 0;
-    a.o_winner[b] = -1;
-    a.o_empty[b] = empty;
-    a.o_moves[b] = 0;
-    a.o_games[b] = games;
+  const long long BL = static_cast<long long>(a.B) * L;
+  game.store(a.o_ints, a.o_bytes, b, L);
+  if (lane == 0) {
+    int* o = a.o_ints + BL;  // to_move, winner, empty, move_count, games
+    o[b] = s;
+    o[a.B + b] = -1;
+    o[2 * a.B + b] = empty;
+    o[3 * a.B + b] = 0;
+    o[4 * a.B + b] = games;
+    a.o_bytes[2 * BL + b] = 0;
   }
 }
 
@@ -719,6 +808,27 @@ int finish_launch() { return static_cast<int>(cudaGetLastError()); }
 cudaError_t allow_smem(const void* kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// K1's and K7's games per CTA for B games (see the launch shape above)
+cudaError_t env_games_per_cta(int B, int* gpc) {
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  *gpc = std::max(1, std::min(kEnvMaxGames, B / std::max(n_sm, 1)));
+  return e;
+}
+
+// launch one of the warp-per-game kernels on B games of L lanes
+template <typename Args>
+int launch_env(void (*kernel)(Args), Args a, int L, void* stream) {
+  cudaError_t e = env_games_per_cta(a.B, &a.games_per_cta);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = a.games_per_cta * env_game_bytes(L);
+  if ((e = allow_smem(reinterpret_cast<const void*>(kernel), smem)) != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(a.B + a.games_per_cta - 1) / a.games_per_cta, 32 * a.games_per_cta, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return finish_launch();
 }
 
 }  // namespace
@@ -733,21 +843,15 @@ const char* hex_error_string(int code) { return cudaGetErrorString(static_cast<c
 
 int hex_step(const void* stones, const void* labels, const void* to_move, const void* done,
              const void* winner, const void* empty, const void* moves, const void* actions,
-             const void* active, void* o_stones, void* o_labels, void* o_to_move, void* o_done,
-             void* o_winner, void* o_empty, void* o_moves, void* o_rewards, int B, int n, int L,
-             void* stream) {
-  StepArgs a{static_cast<const uint8_t*>(stones), static_cast<const int*>(labels),
-             static_cast<const int*>(to_move),    static_cast<const uint8_t*>(done),
-             static_cast<const int*>(winner),     static_cast<const int*>(empty),
-             static_cast<const int*>(moves),      static_cast<const int*>(actions),
-             static_cast<const uint8_t*>(active), static_cast<uint8_t*>(o_stones),
-             static_cast<int*>(o_labels),         static_cast<int*>(o_to_move),
-             static_cast<uint8_t*>(o_done),       static_cast<int*>(o_winner),
-             static_cast<int*>(o_empty),          static_cast<int*>(o_moves),
-             static_cast<float*>(o_rewards),      Board{n, n * n, L}};
-  const int smem = L * (static_cast<int>(sizeof(int)) + 2);
-  step_kernel<<<B, L, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return finish_launch();
+             const void* active, void* o_ints, void* o_bytes, int B, int n, int L, void* stream) {
+  const StepArgs a{static_cast<const uint8_t*>(stones), static_cast<const int*>(labels),
+                   static_cast<const int*>(to_move),    static_cast<const uint8_t*>(done),
+                   static_cast<const int*>(winner),     static_cast<const int*>(empty),
+                   static_cast<const int*>(moves),      static_cast<const int*>(actions),
+                   static_cast<const uint8_t*>(active), static_cast<int*>(o_ints),
+                   static_cast<uint8_t*>(o_bytes),      Board{n, n * n, L},
+                   B,                                   0};
+  return launch_env(step_kernel, a, L, stream);
 }
 
 int hex_agent(const void* params, int F, int H, int A, int n_layers, int relu, const void* obs,
@@ -788,7 +892,9 @@ int hex_bank(const void* bank, int F, int H, int A, int n_layers, int relu, cons
 int hex_rollout_plan(int F, int H, int A, int n_layers, int n, int L, int B, int* plan) {
   const Mlp m{F, H, A, n_layers, 0};
   const Board g{n, n * n, L};
-  if (L > 32 * hex::kWarpLanes) return static_cast<int>(cudaErrorInvalidValue);
+  // K4 is held against its twin on boards up to 11x11 only (L = 128), the
+  // sizes of the preset grid; ops/rollout_kernel.py gates it the same way
+  if (L > 128) return static_cast<int>(cudaErrorInvalidValue);
   const int limit = 220 * 1024;
   cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(rollout_kernel),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
@@ -902,22 +1008,34 @@ int hex_rollout_image_floats(int F, int H, int A, int n_layers, int P1) {
 }
 
 int hex_random_rollout(const void* stones, const void* labels, const void* to_move,
-                       const void* empty, const void* bits, unsigned long long seed,
-                       void* o_stones, void* o_labels, void* o_to_move, void* o_done,
-                       void* o_winner, void* o_empty, void* o_moves, void* o_games, int B, int n,
-                       int L, int T, void* stream) {
-  RandomRolloutArgs a{static_cast<const uint8_t*>(stones), static_cast<const int*>(labels),
-                      static_cast<const int*>(to_move),    static_cast<const int*>(empty),
-                      static_cast<const uint32_t*>(bits),  seed,
-                      static_cast<uint8_t*>(o_stones),     static_cast<int*>(o_labels),
-                      static_cast<int*>(o_to_move),        static_cast<uint8_t*>(o_done),
-                      static_cast<int*>(o_winner),         static_cast<int*>(o_empty),
-                      static_cast<int*>(o_moves),          static_cast<int*>(o_games),
-                      Board{n, n * n, L},                  B,
-                      T};
-  const int smem = L * (static_cast<int>(sizeof(int)) + 2);
-  random_rollout_kernel<<<B, L, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return finish_launch();
+                       const void* empty, const void* bits, unsigned long long seed, void* o_ints,
+                       void* o_bytes, int B, int n, int L, int T, void* stream) {
+  const RandomRolloutArgs a{static_cast<const uint8_t*>(stones), static_cast<const int*>(labels),
+                            static_cast<const int*>(to_move),    static_cast<const int*>(empty),
+                            static_cast<const uint32_t*>(bits),  seed,
+                            static_cast<int*>(o_ints),           static_cast<uint8_t*>(o_bytes),
+                            Board{n, n * n, L},                  B,
+                            T,                                   0};
+  if (n * n > 1024) return static_cast<int>(cudaErrorInvalidValue);  // occupancy bits
+  return launch_env(random_rollout_kernel, a, L, stream);
+}
+
+// K1's and K7's launch shape for B games of L lanes, for reports: plan =
+// [games per CTA, CTAs resident per SM, registers per thread] of K1
+// (kernel 0) or K7 (kernel 1).  Launches nothing.
+int hex_env_plan(int kernel, int B, int L, int* plan) {
+  const void* fn = kernel == 0 ? reinterpret_cast<const void*>(step_kernel)
+                               : reinterpret_cast<const void*>(random_rollout_kernel);
+  cudaError_t e = env_games_per_cta(B, &plan[0]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = plan[0] * env_game_bytes(L);
+  if ((e = allow_smem(fn, smem)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&plan[1], fn, 32 * plan[0], smem)) != cudaSuccess)
+    return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  if ((e = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return static_cast<int>(e);
+  plan[2] = attr.numRegs;
+  return 0;
 }
 
 }  // extern "C"

@@ -54,7 +54,7 @@ F32 = ctypes.c_float
 
 # argument types of each C entry, in order (see csrc/*.cu)
 _ARGTYPES = {
-    "hex_step": [P] * 9 + [P] * 8 + [I, I, I, P],
+    "hex_step": [P] * 9 + [P, P] + [I, I, I, P],  # state in, action, active; ints, bytes
     "hex_agent": [P, I, I, I, I, I, P, P, P, U64, P, P, P, P, I, P],
     "hex_bank": [P, I, I, I, I, I, P, P, P, P, U64, P, P, I, P],
     "hex_rollout": (
@@ -68,7 +68,7 @@ _ARGTYPES = {
     ),
     "hex_random_rollout": (
         [P] * 5 + [U64]  # state in, bits, philox seed
-        + [P] * 8  # state out + games
+        + [P, P]  # out: ints, bytes
         + [I, I, I, I, P]  # B, n, L, T, stream
     ),
     "hex_gae": [P] * 6 + [I, I, F32, F32, P],
@@ -81,6 +81,7 @@ _ARGTYPES = {
     "hex_ppo_plan": [I, I, I, I, I, P],  # launches nothing: no stream
     "hex_rollout_image_floats": [I] * 5,  # a size: no stream
     "hex_rollout_plan": [I] * 7 + [P],  # launches nothing: no stream
+    "hex_env_plan": [I, I, I, P],  # launches nothing: no stream
 }
 
 _lock = threading.Lock()
@@ -208,6 +209,19 @@ def rollout_plan(F: int, H: int, A: int, n_layers: int, n: int, L: int, B: int):
     return tuple(plan)
 
 
+def env_plan(kernel: str, B: int, L: int) -> tuple[int, int, int]:
+    """K1's (``"k1_step"``) or K7's (``"k7_random_rollout"``) launch shape
+    on the current device for B games of L lanes: ``(games per CTA, CTAs
+    resident per SM, registers per thread)``.  Raises on an error code."""
+    handle = lib()
+    plan = (ctypes.c_int * 3)()
+    code = handle.hex_env_plan(("k1_step", "k7_random_rollout").index(kernel), B, L,
+                               ctypes.addressof(plan))
+    if code != 0:
+        raise RuntimeError(f"hex_env_plan failed: {handle.hex_error_string(code).decode()}")
+    return tuple(plan)
+
+
 def rollout_image_floats(F: int, H: int, A: int, n_layers: int, P1: int) -> int:
     """Floats of K4's scratch for the transposed, padded towers of the agent
     and the P1 bank members that its launch builds."""
@@ -234,11 +248,11 @@ def philox_seed(generator: torch.Generator | None) -> int:
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> torch.Tensor:
     """Raise unless ``t`` is a CUDA tensor of ``dtype`` and ``shape``;
-    return it contiguous."""
+    return it contiguous (itself when it already is)."""
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on a CUDA device")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    return t.contiguous()
+    return t if t.is_contiguous() else t.contiguous()

@@ -7,7 +7,8 @@ resolution, the ``to_move`` flip and the 2-seat reward in one launch
 plain PyTorch twin is ``core.env.step``, which computes the same function.
 ``step`` dispatches on the tensor's device: the kernel for a CUDA tensor,
 the twin for a CPU tensor.  ``step_cuda`` is the kernel alone and raises on
-a CPU tensor.
+a CPU tensor.  Both kernels run a warp per game for any number of lanes
+and write into two buffers whose views ``carve_outputs`` hands back.
 
 K7 is the counterpart of ``ops/pallas_step.random_rollout``: T uniform-random
 legal moves per game with auto-reset in one launch, for the env-throughput
@@ -33,33 +34,38 @@ def step_cuda(
     actions: torch.Tensor,
     active: Optional[torch.Tensor] = None,
 ):
-    """``core.env.step`` on the CUDA kernel; returns ``(new_state, rewards)``."""
+    """``core.env.step`` on the CUDA kernel; returns ``(new_state, rewards)``.
+
+    The outputs are views of two buffers (``carve_outputs``); an input that
+    already has the kernel's dtype and layout is passed as it is."""
     B, L = state.batch_size, topo.lanes
     if state.lanes != L:
         raise ValueError(f"state has {state.lanes} lanes, topology {L}")
     chk = cuda_lib.check_cuda
-    stones = chk("stones", state.stones, torch.bool, (B, 2, L))
-    labels = chk("labels", state.labels, torch.int32, (B, L))
+    stones = _aligned(chk("stones", state.stones, torch.bool, (B, 2, L)))
+    labels = _aligned(chk("labels", state.labels, torch.int32, (B, L)))
     to_move = chk("to_move", state.to_move, torch.int32, (B,))
     done = chk("done", state.done, torch.bool, (B,))
     winner = chk("winner", state.winner, torch.int32, (B,))
     empty = chk("empty", state.empty, torch.int32, (B,))
     moves = chk("move_count", state.move_count, torch.int32, (B,))
-    actions = chk("actions", actions.to(torch.int32), torch.int32, (B,))
+    if actions.dtype != torch.int32:
+        actions = actions.to(torch.int32)
+    actions = chk("actions", actions, torch.int32, (B,))
     if active is not None:
-        active = chk("active", active.to(torch.bool), torch.bool, (B,))
+        if active.dtype != torch.bool:
+            active = active.to(torch.bool)
+        active = chk("active", active, torch.bool, (B,))
 
-    out = _empty_state_like(state)
-    rewards = torch.empty((B, 2), dtype=torch.float32, device=stones.device)
+    out, rewards, ints, bytes_ = carve_outputs(B, L, stones.device, 2 * B)
+    rewards = rewards.view(torch.float32).view(B, 2)
     if B == 0:
         return out, rewards
     p = cuda_lib.ptr
     cuda_lib.launch(
         "k1_step", "hex_step",
         p(stones), p(labels), p(to_move), p(done), p(winner), p(empty), p(moves),
-        p(actions), p(active),
-        p(out.stones), p(out.labels), p(out.to_move), p(out.done), p(out.winner),
-        p(out.empty), p(out.move_count), p(rewards),
+        p(actions), p(active), p(ints), p(bytes_),
         B, topo.n, L,
     )
     return out, rewards
@@ -77,13 +83,27 @@ def step(
     return hex_env.step(topo, state, actions, active)
 
 
-def _empty_state_like(state: HexState) -> HexState:
-    """Contiguous uninitialised tensors of the state's shapes, for outputs."""
-    fields = {}
-    for name in HexState.__dataclass_fields__:
-        t = getattr(state, name)
-        fields[name] = torch.empty(t.shape, dtype=t.dtype, device=t.device)
-    return HexState(**fields)
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where it starts on a 16-byte boundary (any fresh tensor
+    and any batch slice of one), else a copy: K1 and K7 move a game's
+    labels and stones in 16- and 4-byte words."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def carve_outputs(B: int, L: int, device, n_extra: int):
+    """K1's and K7's outputs as views of one int32 and one bool buffer, in
+    the kernels' layout (``csrc/hex_kernels.cu``, the launch shape of K1 and
+    K7): ints = labels (B, L), to_move, winner, empty, move_count (B each),
+    then ``n_extra`` ints (K1's rewards, K7's games); bytes = stones
+    (B, 2, L), done (B).  Returns ``(state, extra, ints, bytes)``: two
+    allocations per call where the fields would take eight."""
+    ints = torch.empty((B * (L + 4) + n_extra,), dtype=torch.int32, device=device)
+    bytes_ = torch.empty((B * (2 * L + 1),), dtype=torch.bool, device=device)
+    labels, to_move, winner, empty, moves, extra = ints.split((B * L, B, B, B, B, n_extra))
+    stones, done = bytes_.split((2 * B * L, B))
+    state = HexState(stones=stones.view(B, 2, L), labels=labels.view(B, L), to_move=to_move,
+                     done=done, winner=winner, empty=empty, move_count=moves)
+    return state, extra, ints, bytes_
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +127,8 @@ def random_rollout_cuda(
     if state.lanes != L:
         raise ValueError(f"state has {state.lanes} lanes, topology {L}")
     chk = cuda_lib.check_cuda
-    stones = chk("stones", state.stones, torch.bool, (B, 2, L))
-    labels = chk("labels", state.labels, torch.int32, (B, L))
+    stones = _aligned(chk("stones", state.stones, torch.bool, (B, 2, L)))
+    labels = _aligned(chk("labels", state.labels, torch.int32, (B, L)))
     to_move = chk("to_move", state.to_move, torch.int32, (B,))
     empty = chk("empty", state.empty, torch.int32, (B,))
     if bits is not None:
@@ -117,16 +137,13 @@ def random_rollout_cuda(
     else:
         seed = cuda_lib.philox_seed(generator)
 
-    out = _empty_state_like(state)
-    games = torch.empty((B,), dtype=torch.int32, device=stones.device)
+    out, games, ints, bytes_ = carve_outputs(B, L, stones.device, B)
     if B == 0:
         return out, games
     p = cuda_lib.ptr
     cuda_lib.launch(
         "k7_random_rollout", "hex_random_rollout",
-        p(stones), p(labels), p(to_move), p(empty), p(bits), seed,
-        p(out.stones), p(out.labels), p(out.to_move), p(out.done), p(out.winner),
-        p(out.empty), p(out.move_count), p(games),
+        p(stones), p(labels), p(to_move), p(empty), p(bits), seed, p(ints), p(bytes_),
         B, topo.n, L, n_steps,
     )
     return out, games

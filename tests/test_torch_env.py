@@ -79,7 +79,7 @@ def test_random_trajectories_match_jax(n):
     assert (np.asarray(js.winner) == int(Winner.INVALID)).any()
 
 
-@pytest.mark.parametrize("n", [3, 6])
+@pytest.mark.parametrize("n", [3, 6, 13])  # 13x13: 256 lanes, eight a thread in K1
 def test_step_kernel_twin_matches_pallas_step(n):
     """K1: the port's step on a CPU state (the twin) vs the Pallas step in
     interpret mode, from identical mid-game states."""
@@ -165,6 +165,46 @@ def test_labels_helpers_match_jax():
             np.testing.assert_array_equal(
                 torch_labels.connected_to_edge(tt, labels_t, seat, end).numpy(),
                 np.asarray(jax_labels.connected_to_edge(jt, js.labels, seat, end)))
+
+
+@pytest.mark.parametrize("n", [3, 7, 13])
+def test_carve_outputs_matches_the_state_layout(n):
+    """K1's and K7's outputs, carved from one int32 and one bool buffer,
+    have the dtypes, shapes and contiguity of a state's own tensors, lie in
+    the kernels' order in the two buffers, and leave room for the extras."""
+    tt = torch_topology.get_topology(n)
+    B, L = 5, tt.lanes
+    ref = torch_env.initial_state(tt, B, device="cpu")
+    out, extra, ints, bytes_ = step_kernel.carve_outputs(B, L, "cpu", 2 * B)
+    for name in FIELDS:
+        got, want = getattr(out, name), getattr(ref, name)
+        assert (got.shape, got.dtype, got.is_contiguous()) == (want.shape, want.dtype, True), name
+    assert (ints.dtype, ints.numel()) == (torch.int32, B * (L + 4) + 2 * B)
+    assert (bytes_.dtype, bytes_.numel()) == (torch.bool, B * (2 * L + 1))
+    base = ints.data_ptr()
+    order = [out.labels, out.to_move, out.winner, out.empty, out.move_count, extra]
+    assert [(t.data_ptr() - base) // 4 for t in order] == [0, B * L, B * L + B, B * L + 2 * B,
+                                                          B * L + 3 * B, B * L + 4 * B]
+    assert out.stones.data_ptr() == bytes_.data_ptr()
+    assert out.done.data_ptr() == bytes_.data_ptr() + 2 * B * L
+    assert extra.view(torch.float32).view(B, 2).shape == (B, 2)
+    ints.fill_(7)
+    assert bool((out.empty == 7).all()) and bool((out.labels == 7).all())
+    empty_out, empty_extra, _, _ = step_kernel.carve_outputs(0, L, "cpu", 0)
+    assert empty_out.stones.shape == (0, 2, L) and empty_extra.numel() == 0
+
+
+def test_aligned_copies_only_misaligned_inputs():
+    """K1 and K7 read labels and stones in 16- and 4-byte words: a tensor on
+    a 16-byte boundary (fresh, or a batch slice of one) goes in as it is, a
+    view that starts inside a word is copied."""
+    labels = torch.arange(8 * 128, dtype=torch.int32).view(8, 128)
+    assert step_kernel._aligned(labels) is labels
+    assert step_kernel._aligned(labels[3:]).data_ptr() == labels[3:].data_ptr()
+    view = labels.view(-1)[1:129]
+    out = step_kernel._aligned(view)
+    assert out.data_ptr() != view.data_ptr() and out.data_ptr() % 16 == 0
+    assert torch.equal(out, view) and out.is_contiguous()
 
 
 def test_make_ops_dispatch():

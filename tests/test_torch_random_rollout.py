@@ -43,7 +43,8 @@ def _jax_mid_state(jt, B, rng):
     some still on; row 0 is then a full board with no empty cell."""
     js = jax_env.initial_state(jt, B)
     step = jax.jit(lambda s, a: jax_env.step(jt, s, a))
-    for _ in range(jt.num_cells // 2 + 4):
+    # at 13x13 no random game ends within half the board
+    for _ in range(jt.num_cells // 2 + 4 if jt.n < 13 else jt.num_cells - 20):
         legal = np.asarray(jax_env.legal_mask(jt, js))
         a = np.array([rng.choice(np.flatnonzero(r)) if r.any() else 0 for r in legal], np.int32)
         js, _ = step(js, jnp.asarray(a))
@@ -51,10 +52,11 @@ def _jax_mid_state(jt, B, rng):
     return jax.tree.map(lambda a, f: a.at[0].set(f[0]), js, full)
 
 
-@pytest.mark.parametrize("n", [5, 7])
+@pytest.mark.parametrize("n", [5, 7, 13])  # 13x13: 256 lanes, eight a thread in K7
 @pytest.mark.parametrize("start", ["initial", "mid"])
 def test_twin_matches_pallas_random_rollout(n, start):
-    B, T, seed = 24, 48, 3 + n
+    B, seed = 24, 3 + n
+    T = 48 if n < 13 else 200  # long enough for random 13x13 games to end
     jt, tt = jax_get_topology(n), get_topology(n)
     if start == "initial":
         js = jax_env.initial_state(jt, B)

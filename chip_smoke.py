@@ -15,6 +15,13 @@
    board, the same at 13x13 and 3x3, and on its own Philox streams over 512
    steps: the invariants of the JAX package's test of the kernel, and mean
    games per env within 3 standard errors of the twin's on generator bits;
+   the bank pass K3 on its bank image (built once per rollout, held exactly
+   against its twin) at 7x7 with 256 and 30 games and at 13x13; the
+   whole-rollout K4 with its opponent's logits held against the twin's too,
+   and on its bf16 bank (``rollout_bank_bf16``) at the preset's and at a
+   trained-scale bank, replayed exactly, with a control that the float32
+   instance in the bf16 instance's place is refused; GAE (K5) exactly at
+   (T, B) = (128, 256), (128, 30), (2048, 8) and (128, 4096);
    every kernel's call time (CUDA events around its wrapper's calls) and
    device time (its own kernels' self device time under ``torch.profiler``);
 3. drives the main path: ``SelfplayRunner.run`` of the
@@ -33,7 +40,8 @@
    launches of every iteration asserted, a checkpoint after iteration 2 that
    ``resume`` continues to bitwise the same parameters, and ``fit_fused``
    with the same eval cadence and result; prints seconds per iteration and
-   the split by stage;
+   the split by stage; then two iterations with ``rollout_bank_bf16`` (the
+   bf16-bank K4 instance in the rollout and the eval), launches asserted;
 7. trains the small config of ``tests/test_learning_curve.py`` for 24
    iterations on the card and asserts that test's thresholds;
 8. profiles one preset iteration;
@@ -59,9 +67,11 @@ it gives the split before a change beside the split after it.
     python3 chip_smoke.py --env-kernels LABEL ROOT
 
 only builds the kernels of the port found in the directory ROOT and prints,
-on a line tagged ``[env LABEL]``, the call and device times of K7 (its
-Philox streams at the benchmark's shape) and K1 (7x7, 256 games): with ROOT
-an unpacked older tree, the same measurement of the kernels before a change.
+on lines tagged ``[env LABEL]``, the call and device times of K7 (its
+Philox streams at the benchmark's shape), K1 (7x7, 256 games), K5 (the
+preset's T = 128, B = 256, on the rollout record's strided lanes) and K3
+(7x7, 256 games): with ROOT an unpacked older tree, the same measurement of
+the kernels before a change.
 """
 
 from __future__ import annotations
@@ -76,6 +86,26 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-5  # kernel vs twin: float32 sums in another order (FMA loops vs cuBLAS)
+# K4 on the bf16 bank, held on the opponent's logits (which the kernel
+# writes where asked) against its bf16 twin.  Both sum the same bf16
+# products in float32, in other orders, so a logit row agrees within TOL,
+# except where a hidden unit whose tanh lands an ulp or so apart on the card
+# and in torch rounds to the neighbouring bf16 value: that row moves by
+# about one bf16 ulp of the unit times the weights after it.  Such rows are
+# rare: at most BF16_FLIP_SHARE of the rows may differ by more than TOL,
+# and none by more than BF16_FLIP_REL (one bf16 ulp) of the largest logit.
+# The float32 bank moves every row past TOL, so the float32 instance in the
+# bf16 instance's place fails this check (a control asserts it).  An
+# opponent's action may differ from the twin's only where the twin's two
+# best scores lie within twice that row's logit error.
+BF16_FLIP_SHARE = 0.01
+BF16_FLIP_REL = 2.0**-8
+# K5 exactly equal to its twin at these (T, B): the preset, the eval
+# batch's 30 (a warp partly empty), the strict presets' T = 2048, and 4096
+K5_SHAPES = ((128, 256), (128, 30), (2048, 8), (128, 4096))
+# K3 against its twin at these (n, games): the scan path at the preset, the
+# eval batch, and 13x13 (256 lanes), a board only the scan path takes
+K3_SHAPES = ((7, 256), (7, 30), (13, 256))
 
 N, B, H, POOL, T = 7, 256, 64, 30, 128
 # K7 at the env-throughput benchmark's shape (hex_gym_env_tpu_torch/bench.py);
@@ -98,7 +128,9 @@ K7_OLD_OPS_PER_LANE_STEP = 19  # the earlier count: 19 operations on each of the
 # the kernels' names in torch.profiler's device events, for their device time
 KERNEL_NAMES = {
     "k1_step": ("step_kernel",), "k2_agent": ("agent_kernel",), "k3_bank": ("bank_kernel",),
-    "k4_rollout": ("tower_image_kernel", "rollout_kernel"), "k5_gae": ("gae_kernel",),
+    "k3_bank_image": ("tower_image_kernel",),
+    "k4_rollout": ("tower_image_kernel", "rollout_kernel"),
+    "k4_rollout_bf16": ("tower_image_kernel", "rollout_kernel"), "k5_gae": ("gae_kernel",),
     "k6_ppo": ("ppo_kernel",), "k7_random_rollout": ("random_rollout_kernel",),
 }
 PRESET = "7x7_MLP-default_lr-0.0003"
@@ -151,28 +183,33 @@ def host_us(fn, reps: int) -> float:
 def device_ms(fn, names, reps: int) -> float:
     """The device time per call of ``fn`` of the kernels ``names``: their
     self device time under ``torch.profiler`` over ``reps`` calls, after one
-    warm-up, so the host's work between launches is not in it.  Fails where
-    the profiler shows none (it does on the H100 machine)."""
+    warm-up, so the host's work between launches is not in it.  A session
+    has come back once without the device's records for a kernel that the
+    next sessions traced (H100 machine), so up to three sessions are taken;
+    fails where none shows device time."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     pattern = re.compile(r"(?:^|[\s:])(?:%s)[(<]" % "|".join(names))
-    us = 0.0
-    for ev in prof.key_averages():
-        if pattern.search(ev.key):
-            t = getattr(ev, "self_device_time_total", None)
-            us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
-    if us <= 0:
-        fail(f"torch.profiler shows no device time for {names}")
-    return us / reps / 1e3
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if pattern.search(ev.key):
+                t = getattr(ev, "self_device_time_total", None)
+                us += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            return us / reps / 1e3
+        print(f"chip_smoke: a torch.profiler session showed no device time for {names}",
+              file=sys.stderr)
+    fail(f"torch.profiler shows no device time for {names}")
 
 
 def k1_inputs(topo, B: int, plies: int, g):
@@ -254,16 +291,85 @@ def k7_exact(topo, start, T: int, bits, label: str) -> None:
           f"{int(k_games[0])} times")
 
 
-def env_kernel_times(label: str) -> dict:
-    """Call time (CUDA events around the wrapper's calls) and device time
-    (``device_ms``) of K7 on its Philox streams at the benchmark's shape,
-    seeded from a CPU generator, and of K1 at 7x7, B = 256, through the
-    package first on ``sys.path``; prints them on a line tagged
-    ``[env LABEL]``."""
+def k3_case(n: int, b: int, g) -> dict:
+    """K3's inputs on the card at n x n with b games, from the CPU generator
+    ``g``: the preset's tower (MLP-default) with POOL random members and a
+    best, positions after random legal plies of the plain env (some games
+    over), members drawn over all P1 with the best also by ``use_best``,
+    and injected bits.  ``op`` and ``twin_op`` are the kernel's and the
+    twin's bank operands: ``pk.bank_operand`` where the port has it, else
+    (an older tree, whose K3 reads the stacked bank) the stack itself."""
     import torch
     from hex_gym_env_tpu_torch.core import env as hex_env
     from hex_gym_env_tpu_torch.core.topology import get_topology
-    from hex_gym_env_tpu_torch.ops import step_kernel
+    from hex_gym_env_tpu_torch.models import make_policy
+    from hex_gym_env_tpu_torch.ops import masked
+    from hex_gym_env_tpu_torch.ops import policy_kernel as pk
+    from hex_gym_env_tpu_torch.train.bank import OpponentBank, init_bank
+
+    dev = torch.device("cuda")
+    topo = get_topology(n)
+    A = topo.num_cells
+    model = make_policy("MLP-default", A, generator=g)
+    snaps = [make_policy("MLP-default", A, generator=g).state_dict() for _ in range(POOL + 1)]
+    params = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
+    bank = OpponentBank(
+        params={k: torch.stack([s[k] for s in snaps[:POOL]]).to(dev) for k in params},
+        scores=init_bank(params, POOL).scores,
+        best_params={k: v.to(dev) for k, v in snaps[POOL].items()},
+        best_score=torch.zeros(()))
+    pol, twin = pk.PolicyOps(model, "pallas"), pk.PolicyOps(model, "lax")
+    stacked = pol.stack_bank(bank)
+    state = hex_env.initial_state(topo, b, dev)
+    for _ in range(24 if n <= 7 else 60):
+        legal = hex_env.legal_mask(topo, state)
+        a = masked.sample(masked.draw_bits(g, (b, A), dev), torch.zeros((b, A), device=dev), legal)
+        state, _ = hex_env.step(topo, state, a)
+    member = torch.randint(0, POOL + 1, (b,), generator=g).to(dev, torch.int32)
+    operand = hasattr(pk, "bank_operand")
+    return dict(
+        topo=topo, pol=pol, twin=twin, stacked=stacked,
+        op=pk.bank_operand(stacked, pol.dims, "pallas") if operand else stacked,
+        twin_op=pk.BankOperand(stacked) if operand else stacked,
+        obs=hex_env.observe(topo, state), legal=hex_env.legal_mask(topo, state),
+        use_best=torch.rand((b,), generator=g).to(dev) < 0.3, member=member,
+        bits=masked.draw_bits(g, (b, A), dev), done=int(state.done.sum()))
+
+
+def k3_call(c: dict, pol=None, generator=None):
+    """A closure of one K3 pass on case ``c`` (its injected bits, or the
+    Philox streams seeded from ``generator``) by ``pol`` (the kernel's by
+    default; the twin's with ``c["twin"]``)."""
+    op = c["op"] if pol is None else c["twin_op"]
+    pol = c["pol"] if pol is None else pol
+    bits = None if generator is not None else c["bits"]
+    return lambda: pol.bank_act(op, c["use_best"], c["member"], c["obs"], c["legal"],
+                                generator, bits)
+
+
+def k5_case(T: int, B: int, g):
+    """K5's inputs on the card, as the rollout record gives them: rewards
+    and values strided lanes of a (T, B, 8) float32 record, rewards in
+    {-1, 0, 1} where a tenth of the rows end, dones there."""
+    import torch
+
+    dev = torch.device("cuda")
+    flts = torch.randn((T, B, 8), generator=g).to(dev)
+    dones = (torch.rand((T, B), generator=g) < 0.1).to(dev)
+    flts[..., 2] = torch.where(dones, torch.sign(flts[..., 2]), 0.0)
+    return (flts[..., 2], flts[..., 1], dones, torch.randn((B,), generator=g).to(dev), 0.99, 0.95)
+
+
+def env_kernel_times(label: str) -> dict:
+    """Call time (CUDA events around the wrapper's calls) and device time
+    (``device_ms``) of K7 on its Philox streams at the benchmark's shape,
+    seeded from a CPU generator, of K1 at 7x7, B = 256, of K5 at the
+    preset's shape and of K3 at 7x7, B = 256 (Philox), through the package
+    first on ``sys.path``; prints them on lines tagged ``[env LABEL]``."""
+    import torch
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.core.topology import get_topology
+    from hex_gym_env_tpu_torch.ops import gae_kernel, step_kernel
 
     topo = get_topology(N)
     init7 = hex_env.initial_state(topo, K7_B, torch.device("cuda"))
@@ -277,11 +383,22 @@ def env_kernel_times(label: str) -> dict:
     def k1():
         return step_kernel.step_cuda(topo, state, actions, active)
 
+    gae_args = k5_case(T, B, torch.Generator().manual_seed(41))
+
+    def k5():
+        return gae_kernel.compute_gae_cuda(*gae_args)
+
+    k3 = k3_call(k3_case(N, B, torch.Generator().manual_seed(43)),
+                 generator=torch.Generator().manual_seed(44))
     out = {"k7": (cuda_ms(k7, 10), device_ms(k7, KERNEL_NAMES["k7_random_rollout"], 10)),
-           "k1": (cuda_ms(k1, 200), device_ms(k1, KERNEL_NAMES["k1_step"], 200))}
+           "k1": (cuda_ms(k1, 200), device_ms(k1, KERNEL_NAMES["k1_step"], 200)),
+           "k5": (cuda_ms(k5, 200), device_ms(k5, KERNEL_NAMES["k5_gae"], 200)),
+           "k3": (cuda_ms(k3, 200), device_ms(k3, KERNEL_NAMES["k3_bank"], 200))}
     print(f"[env {label}] K7 Philox {K7_T} steps x {K7_B} games: call {out['k7'][0]:.4f} ms, "
           f"device {out['k7'][1]:.4f} ms; K1 7x7 B {B}: call {out['k1'][0]:.5f} ms, "
           f"device {out['k1'][1]:.5f} ms")
+    print(f"[env {label}] K5 T {T} B {B}: call {out['k5'][0]:.5f} ms, device {out['k5'][1]:.5f} ms; "
+          f"K3 7x7 B {B}: call {out['k3'][0]:.5f} ms, device {out['k3'][1]:.5f} ms")
     from hex_gym_env_tpu_torch.ops import cuda_lib
 
     if hasattr(cuda_lib, "env_plan"):  # trees whose K1 and K7 run a warp per game
@@ -630,76 +747,139 @@ def main() -> int:
     print(f"[K2 agent] max err {err:.3g}, near-tie rows {ties}; call {k_ms:.4f} ms, device "
           f"{k_dev:.5f} ms, twin {p_ms:.4f} ms")
 
-    # ---- 2c. K3 bank pass --------------------------------------------------------
-    member = torch.randint(0, P1, (B,), generator=g).to(dev, torch.int32)
-    use_best = member == P1 - 1
-    ka, km = pol.bank_act(stacked, use_best, member, obs, legal, bits=bits)
-    ta, tm = twin.bank_act(stacked, use_best, member, obs, legal, bits=bits)
-    torch.cuda.synchronize()
-    top2 = torch.topk(tm + masked.gumbel(bits), 2, dim=-1).values
-    ties = check_actions("K3", ka, ta, top2[:, 0] - top2[:, 1])
-    err = float((km - tm).abs().max())
-    if err > TOL:
-        fail(f"K3 logits differ by {err}")
-    k_ms = cuda_ms(lambda: pol.bank_act(stacked, use_best, member, obs, legal, gen_k), 200)
-    k_dev = device_ms(lambda: pol.bank_act(stacked, use_best, member, obs, legal, gen_k),
-                      KERNEL_NAMES["k3_bank"], 200)
-    p_ms = cuda_ms(lambda: twin.bank_act(stacked, use_best, member, obs, legal, bits=bits), 50)
-    used = int(member.unique().numel())
+    # ---- 2c. K3 bank pass on its bank image ----------------------------------------
+    k3_err, k3_ties, k3_cases = 0.0, 0, {}
+    g3 = torch.Generator().manual_seed(33)
+    for n3, b3 in K3_SHAPES:
+        c3 = k3_case(n3, b3, g3)
+        d3 = c3["pol"].dims
+        cuda_lib.reset_launches()
+        image3 = pk.bank_operand(c3["stacked"], d3, "pallas").image
+        if cuda_lib.launches["k3_bank_image"] != 1 or not torch.equal(
+                image3, pk.bank_image_twin(c3["stacked"], d3)):
+            fail(f"K3's bank image at {n3}x{n3} differs from its twin")
+        ka, km = k3_call(c3)()
+        ta, tm = k3_call(c3, c3["twin"])()
+        torch.cuda.synchronize()
+        top2 = torch.topk(tm + masked.gumbel(c3["bits"]), 2, dim=-1).values
+        ties = check_actions(f"K3 {n3}x{n3} B {b3}", ka, ta, top2[:, 0] - top2[:, 1])
+        err = float((km - tm).abs().max())
+        if err > TOL:
+            fail(f"K3 {n3}x{n3} B {b3}: logits differ by {err}")
+        k3_err, k3_ties, k3_cases[(n3, b3)] = max(k3_err, err), k3_ties + ties, c3
+        print(f"[K3 bank] {n3}x{n3} B {b3}: image exact, max err {err:.3g}, near-tie rows {ties}, "
+              f"{c3['done']} games over, {int(c3['use_best'].sum())} rows on the best")
+    c3 = k3_cases[(N, B)]
+    k3_k = k3_call(c3, generator=gen_k)
+    k_ms = cuda_ms(k3_k, 200)
+    k_dev = device_ms(k3_k, KERNEL_NAMES["k3_bank"], 200)
+    p_ms = cuda_ms(k3_call(c3, c3["twin"]), 50)
+    image_dev = device_ms(lambda: pk.bank_operand(c3["stacked"], d, "pallas"),
+                          KERNEL_NAMES["k3_bank_image"], 50)
+    members = torch.where(c3["use_best"], P1 - 1, c3["member"])
+    used = int(members.unique().numel())
     flops = 2 * B * (pk.tower_size(d, A) - (d.H * d.n_layers + A))
     n_bytes = 4 * used * pk.tower_size(d, A) + B * F + B * A + B * 4 + B * 4 + B * A * 4
     bnd, by = bound_ms(n_bytes, flops)
-    kernels["k3_bank"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=err,
-                              bound_ms=bnd, bound_by=by)
-    print(f"[K3 bank] max err {err:.3g}, near-tie rows {ties}; call {k_ms:.4f} ms, device "
-          f"{k_dev:.5f} ms, twin {p_ms:.4f} ms")
+    kernels["k3_bank"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=k3_err,
+                              bound_ms=bnd, bound_by=by, image_device_ms=image_dev)
+    print(f"[K3 bank] max err {k3_err:.3g}, near-tie rows {k3_ties}; 7x7 B {B}: call {k_ms:.4f} ms, "
+          f"device {k_dev:.5f} ms, twin {p_ms:.4f} ms; the bank image, once per rollout: device "
+          f"{image_dev:.5f} ms")
 
     # ---- 2d. K4 whole rollout, training and eval mode ------------------------------
     setup = SelfplayRunner(topo, model, dataclasses.replace(
         cfg, rollout_impl="scan", policy_impl="lax", env_step_impl="lax"), device=dev)
     carry = setup.init_carry(bank, g)
     rbits = rk.draw_rollout_bits(g, T, B, A, dev)
-    k4_err = 0.0
-    for eval_mode in (False, True):
-        args = (topo, pol, packed, stacked, table, carry.env, carry.agent_seat, carry.use_best,
-                carry.opp_idx, T, cfg.best_prob, True)
-        kout = rk.fused_rollout(*args, bits=rbits, eval_mode=eval_mode)
+    # a bank at trained magnitudes (members N(0, 0.3^2), logits of a few
+    # units), where the bf16 bank moves every row's logits far past TOL
+    stacked_w = (torch.randn(stacked.shape, generator=g) * 0.3).to(dev)
+    table_w = rk.first_move_table(stacked_w, d)
+
+    def k4_against_twin(bank_s, table_s, eval_mode, bank_bf16, kernel_bf16=None):
+        """K4's ``kernel_bf16`` instance (``bank_bf16``'s by default) against
+        the twin on ``bank_bf16``'s bank, the same bits: (problems, stats)."""
+        kernel_bf16 = bank_bf16 if kernel_bf16 is None else kernel_bf16
+        klog = torch.full((T, B, A), float("nan"), device=dev)
+        tlog = torch.full_like(klog, float("nan"))
+        kout = rk.fused_rollout(topo, pol, packed, bank_s, table_s, carry.env, carry.agent_seat,
+                                carry.use_best, carry.opp_idx, T, cfg.best_prob, True, bits=rbits,
+                                eval_mode=eval_mode, bank_bf16=kernel_bf16, opp_logits=klog)
         tout, margins = rk.fused_rollout_twin(
-            topo, d, packed, stacked, table, carry.env, carry.agent_seat, carry.use_best,
-            carry.opp_idx, T, cfg.best_prob, True, rbits, eval_mode=eval_mode, with_margins=True)
+            topo, d, packed, bank_s, table_s, carry.env, carry.agent_seat, carry.use_best,
+            carry.opp_idx, T, cfg.best_prob, True, rbits, eval_mode=eval_mode,
+            with_margins=True, bank_bf16=bank_bf16, opp_logits=tlog)
         torch.cuda.synchronize()
-        same = (kout.ints == tout.ints).all(-1) & (kout.obs == tout.obs).all(-1)  # (T, B)
+        problems = []
+        if not bool(torch.isfinite(klog).all()):
+            problems.append("opponent logits left unwritten")
+        same_obs = (kout.obs == tout.obs).all(-1)
+        same = (kout.ints == tout.ints).all(-1) & same_obs  # (T, B)
+        # the opponent's logits compare where the game was the same up to its reply
+        before = torch.cat([torch.ones_like(same[:1]), same[:-1]]).int().cumprod(0).bool()
+        at_opp = before & same_obs & (kout.ints[..., rk.I_ACTION] == tout.ints[..., rk.I_ACTION])
+        row_err = (klog - tlog).abs().amax(-1)  # (T, B)
+        errs = row_err[at_opp]
+        logit_err = float(errs.max())
+        share = float((errs > TOL).float().mean())
+        if bank_bf16:
+            if share > BF16_FLIP_SHARE:
+                problems.append(f"{share:.2%} of the opponent's logit rows differ by more than {TOL}")
+            if logit_err > BF16_FLIP_REL * float(tlog[at_opp].abs().max()):
+                problems.append(f"opponent logits differ by {logit_err}")
+        elif logit_err > TOL:
+            problems.append(f"opponent logits differ by {logit_err}")
         row_ok = same.all(0)
         for b in (~row_ok).nonzero().flatten().tolist():
             t = int((~same[:, b]).nonzero()[0])
             lanes = (kout.ints[t, b] != tout.ints[t, b]).nonzero().flatten().tolist()
-            if not lanes or lanes[0] > 2 or float(margins[t, b, lanes[0]]) >= TOL:
-                fail(f"K4 (eval={eval_mode}) row {b} diverges at step {t}, lanes {lanes}")
+            # an opponent's draw may flip only within twice its row's logit error
+            tie = TOL + (2 * float(row_err[t, b]) if bank_bf16 and lanes[:1] == [1] else 0.0)
+            if not lanes or lanes[0] > 2 or float(margins[t, b, lanes[0]]) >= tie:
+                problems.append(f"row {b} diverges at step {t}, lanes {lanes}")
+                break
         for name in ("stones", "labels", "to_move", "done", "empty", "move_count"):
-            k, tw = getattr(kout.state, name)[row_ok], getattr(tout.state, name)[row_ok]
-            if not torch.equal(k, tw):
-                fail(f"K4 (eval={eval_mode}) final {name} differs")
+            if not torch.equal(getattr(kout.state, name)[row_ok], getattr(tout.state, name)[row_ok]):
+                problems.append(f"final {name} differs")
         for k, tw in ((kout.agent_seat, tout.agent_seat), (kout.use_best, tout.use_best),
                       (kout.opp_idx, tout.opp_idx)):
             if not torch.equal(k[row_ok], tw[row_ok]):
-                fail(f"K4 (eval={eval_mode}) final seat/opponent differs")
+                problems.append("final seat/opponent differs")
         ferr = float((kout.flts - tout.flts)[:, row_ok].abs().max())
         if ferr > TOL:
-            fail(f"K4 (eval={eval_mode}) floats differ by {ferr}")
-        k4_err = max(k4_err, ferr)
-        print(f"[K4 rollout eval={eval_mode}] {int(row_ok.sum())}/{B} rows identical, "
-              f"{int((~row_ok).sum())} near-tie rows, max err {ferr:.3g}, "
-              f"{int(kout.ints[..., rk.I_DONE].sum())} done flags")
-    def k4_call():
-        return rk.fused_rollout(topo, pol, packed, stacked, table, carry.env, carry.agent_seat,
-                                carry.use_best, carry.opp_idx, T, cfg.best_prob, True,
-                                generator=gen_k)
+            problems.append(f"floats differ by {ferr}")
+        return problems, dict(kout=kout, rows=int(row_ok.sum()), ferr=ferr, logit_err=logit_err,
+                              share=share, compared=int(at_opp.sum()),
+                              logit_max=float(tlog[at_opp].abs().max()))
 
-    k_ms = cuda_ms(k4_call, 10)
-    k_dev = device_ms(k4_call, KERNEL_NAMES["k4_rollout"], 10)
-    p_ms = cuda_ms(lambda: rk.fused_rollout_twin(
-        topo, d, packed, stacked, table, carry.env, carry.agent_seat, carry.use_best,
-        carry.opp_idx, T, cfg.best_prob, True, rbits), 2)
+    k4_err = {False: 0.0, True: 0.0}
+    for bank_bf16, label, bank_s, table_s in ((False, "preset bank", stacked, table),
+                                              (True, "preset bank", stacked, table),
+                                              (True, "trained-scale bank", stacked_w, table_w)):
+        for eval_mode in (False, True):
+            tag = f"eval={eval_mode}, {'bf16' if bank_bf16 else 'float32'} {label}"
+            problems, st = k4_against_twin(bank_s, table_s, eval_mode, bank_bf16)
+            if problems:
+                fail(f"K4 ({tag}): " + "; ".join(problems))
+            k4_err[bank_bf16] = max(k4_err[bank_bf16], st["ferr"], st["logit_err"])
+            if bank_bf16 and not eval_mode:  # the kernel's own record replays exactly
+                rk.verify_rollout_trajectory(topo, model, params, carry, st["kout"], T,
+                                             cfg.seat_mode, POOL)
+            print(f"[K4 rollout {tag}] {st['rows']}/{B} rows identical, {B - st['rows']} near-tie "
+                  f"rows, agent floats max err {st['ferr']:.3g}; opponent logits (up to "
+                  f"{st['logit_max']:.3g}) on {st['compared']} rows: max err {st['logit_err']:.3g}, "
+                  f"{st['share']:.3%} of rows beyond {TOL}; "
+                  f"{int(st['kout'].ints[..., rk.I_DONE].sum())} done flags"
+                  + ("; replayed exactly" if bank_bf16 and not eval_mode else ""))
+    # the control: the float32 instance in the bf16 instance's place must fail
+    problems, st = k4_against_twin(stacked_w, table_w, False, True, kernel_bf16=False)
+    if not problems or st["share"] <= BF16_FLIP_SHARE:
+        fail("K4's bf16 check passes the float32 instance in the bf16 instance's place")
+    print(f"[K4 rollout, control] the float32 instance against the bf16 twin on the trained-scale "
+          f"bank is refused: opponent logits max err {st['logit_err']:.3g}, {st['share']:.3%} of "
+          f"{st['compared']} rows beyond {TOL}; {st['rows']}/{B} rows identical")
+
     per_game_step = 2 * (pk.tower_size(d, A) + pk.tower_size(d, 1) - (2 * d.H * d.n_layers + A + 1)) \
         + 2 * (pk.tower_size(d, A) - (d.H * d.n_layers + A))
     flops = T * B * per_game_step
@@ -707,11 +887,27 @@ def main() -> int:
                + 2 * B * (6 * L + 5 * 4 + 2)
                + T * B * F + 2 * T * B * 8 * 4)
     bnd, by = bound_ms(n_bytes, flops)
-    kernels["k4_rollout"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=k4_err,
-                                 bound_ms=bnd, bound_by=by)
-    plan4 = cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, N, L, B)
-    print(f"[K4 rollout] call {k_ms:.3f} ms, device {k_dev:.4f} ms (both kernels), twin {p_ms:.3f} ms for {T} steps x {B} games "
-          f"(plan: games per CTA, agent / members in shared memory, bytes {plan4})")
+    for bank_bf16, name in ((False, "k4_rollout"), (True, "k4_rollout_bf16")):
+        def k4_call():
+            return rk.fused_rollout(topo, pol, packed, stacked, table, carry.env, carry.agent_seat,
+                                    carry.use_best, carry.opp_idx, T, cfg.best_prob, True,
+                                    generator=gen_k, bank_bf16=bank_bf16)
+
+        k_ms = cuda_ms(k4_call, 10)
+        k_dev = device_ms(k4_call, KERNEL_NAMES[name], 10)
+        p_ms = cuda_ms(lambda: rk.fused_rollout_twin(
+            topo, d, packed, stacked, table, carry.env, carry.agent_seat, carry.use_best,
+            carry.opp_idx, T, cfg.best_prob, True, rbits, bank_bf16=bank_bf16), 2)
+        # the bf16 bank moves half the members' bytes; the bound counts the
+        # float32 bank as the function's input all the same.  max_abs_err is
+        # the larger of the agent's floats' and the opponent's logits' errors
+        kernels[name] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=k4_err[bank_bf16],
+                             bound_ms=bnd, bound_by=by)
+        print(f"[K4 rollout{', bf16 bank' if bank_bf16 else ''}] call {k_ms:.3f} ms, device "
+              f"{k_dev:.4f} ms (both kernels), twin {p_ms:.3f} ms for {T} steps x {B} games")
+    print("[K4 rollout] plan (games per CTA, agent / members in shared memory, bytes): float32 "
+          f"{cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, N, L, B)}, bf16 bank "
+          f"{cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, N, L, B, True)}")
 
     # ---- 2e. K7 random-legal rollout vs its twin, the same bits ---------------------
     gen_c = torch.Generator(device=dev).manual_seed(77)
@@ -842,6 +1038,8 @@ def main() -> int:
     for name in ("k1_step", "k2_agent", "k3_bank"):
         if scan_counts[name] == 0:
             fail(f"the scan path never launched {name}")
+    if scan_counts["k3_bank_image"] != 2:  # init_carry's bank, then the rollout's
+        fail(f"the scan path built the bank image {scan_counts['k3_bank_image']} times, not 2")
     picked = torch.take_along_dim(trs.legal, trs.action.long()[..., None], -1)
     if not bool(picked.all()) or not bool(torch.isfinite(lvs).all()):
         fail("the scan path produced illegal actions or non-finite values")
@@ -863,14 +1061,26 @@ def main() -> int:
     torch.cuda.synchronize()
     if not (torch.equal(k_adv, t_adv) and torch.equal(k_ret, t_ret)):
         fail(f"K5 differs from its twin by {max(max_err(k_adv, t_adv), max_err(k_ret, t_ret))}")
+    g5 = torch.Generator().manual_seed(55)
+    for T5, B5 in K5_SHAPES:
+        args5 = k5_case(T5, B5, g5)
+        k_adv5, k_ret5 = gae_kernel.compute_gae_cuda(*args5)
+        t_adv5, t_ret5 = gae_kernel.compute_gae_twin(*args5)
+        torch.cuda.synchronize()
+        if not (torch.equal(k_adv5, t_adv5) and torch.equal(k_ret5, t_ret5)):
+            fail(f"K5 at T {T5} B {B5} differs from its twin")
+        print(f"[K5 gae] T {T5} B {B5}: exactly the twin's ({int(args5[2].sum())} dones)")
     k_ms = cuda_ms(lambda: gae_kernel.compute_gae_cuda(*gae_args), 200)
     k_dev = device_ms(lambda: gae_kernel.compute_gae_cuda(*gae_args), KERNEL_NAMES["k5_gae"], 200)
     p_ms = cuda_ms(lambda: gae_kernel.compute_gae_twin(*gae_args), 10)
     bnd, by = bound_ms(T * B * (4 + 4 + 1) + 4 * B + 2 * T * B * 4, 0)
     kernels["k5_gae"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=0.0,
                              bound_ms=bnd, bound_by=by)
+    long5 = k5_case(2048, B, g5)
+    long_dev = device_ms(lambda: gae_kernel.compute_gae_cuda(*long5), KERNEL_NAMES["k5_gae"], 20)
     print(f"[K5 gae] exact on {T}x{B} rollout data ({int(tr.done.sum())} dones); "
-          f"call {k_ms:.4f} ms, device {k_dev:.5f} ms, twin {p_ms:.4f} ms")
+          f"call {k_ms:.4f} ms, device {k_dev:.5f} ms, twin {p_ms:.4f} ms; T 2048 B {B}: device "
+          f"{long_dev:.5f} ms")
 
     # ---- 5b. K6 PPO sweep vs its twin at the preset's shapes ---------------------------
     n, mbs = T * B, tcfg_ppo.minibatch_size
@@ -1058,6 +1268,39 @@ def main() -> int:
     print("[train] resume from iteration 2 -> iteration 3 params bitwise equal; "
           "fit_fused: same eval cadence, bitwise equal params")
 
+    # the bf16 bank on the training main path: the rollout and the eval take
+    # K4's bf16-bank instance; the second iteration's time beside float32's
+    tcfg_b = get_config(PRESET, rollout_bank_bf16=True, total_timesteps=2 * per_iter,
+                        checkpoint_every=10 * per_iter, log_dir=os.path.join(work, "log"),
+                        model_dir=os.path.join(work, "models"), model_name="bf16")
+    trainer_b = Trainer(tcfg_b, device=dev)
+    algo_b = trainer_b.algo
+    if algo_b.runner.fused_pol is None or algo_b.evaluator.fused_pol is None:
+        fail("rollout_bank_bf16 does not resolve to the whole-rollout kernel")
+    marks_b = []
+    train_step_b = algo_b.train_step
+
+    def marked_train_step_b(state):
+        torch.cuda.synchronize()
+        marks_b.append((time.perf_counter(), dict(cuda_lib.launches)))
+        return train_step_b(state)
+
+    algo_b.train_step = marked_train_step_b
+    cuda_lib.reset_launches()
+    state_b = trainer_b.fit()
+    torch.cuda.synchronize()
+    marks_b.append((time.perf_counter(), dict(cuda_lib.launches)))
+    for i in range(2):
+        got = {k: marks_b[i + 1][1][k] - marks_b[i][1][k] for k in cuda_lib.KERNELS}
+        if (got["k4_rollout_bf16"], got["k4_rollout"], got["k5_gae"], got["k6_ppo"]) != (2, 0, 1, 1):
+            fail(f"bf16 iteration {i + 1} launched {got}: expected K4 (bf16 bank) 2, K5 1, K6 1")
+    if not all(bool(torch.isfinite(v).all()) for v in state_b.params.values()):
+        fail("non-finite parameters after the bf16-bank iterations")
+    bf16_iter_launches = marks_b[2][1]["k4_rollout_bf16"] - marks_b[1][1]["k4_rollout_bf16"]
+    iter_b = [marks_b[i + 1][0] - marks_b[i][0] for i in range(2)]
+    print(f"[train bf16 bank] 2 iterations: s per iteration {[round(x, 4) for x in iter_b]} "
+          f"(float32 bank: {[round(x, 4) for x in iter_s]}); K4 bf16 2, K5 1, K6 1 launches each")
+
     # ---- 7. learning on the card (tests/test_learning_curve.py's config) --------------
     lcfg = TrainConfig(ppo=PPOConfig(n_steps=32, minibatch_size=512, n_epochs=4),
                        selfplay=SelfplayConfig(board_size=4, n_envs=64, buffer_size=4))
@@ -1140,7 +1383,8 @@ def main() -> int:
         sb_times.append(time.perf_counter() - t0)
         sb_counts.append(dict(cuda_lib.launches))
     want_train = dict.fromkeys(cuda_lib.KERNELS, 0)
-    want_train.update(k1_step=3 * sb_T, k2_agent=sb_T, k3_bank=2 * sb_T, k5_gae=1, k6_ppo=1)
+    want_train.update(k1_step=3 * sb_T, k2_agent=sb_T, k3_bank=2 * sb_T, k3_bank_image=1, k5_gae=1,
+                      k6_ppo=1)
     want_eval = dict.fromkeys(cuda_lib.KERNELS, 0)
     want_eval.update(k1_step=1 + 2 * (F // 2 + 2))
     if sb_counts != [want_train, want_eval]:
@@ -1178,6 +1422,8 @@ def main() -> int:
                     rollout_src),
         "k4_rollout": ("hex_gym_env_tpu/ops/pallas_rollout.py:163", main_counts["k4_rollout"],
                        rollout_src),
+        "k4_rollout_bf16": ("hex_gym_env_tpu/ops/pallas_rollout.py:163", bf16_iter_launches,
+                            rollout_src),
         "k5_gae": ("hex_gym_env_tpu/ops/pallas_gae.py:32", train_counts["k5_gae"], learner_src),
         "k6_ppo": ("hex_gym_env_tpu/ops/pallas_ppo.py:119", train_counts["k6_ppo"], learner_src),
         "k7_random_rollout": ("hex_gym_env_tpu/ops/pallas_step.py:228",
@@ -1192,6 +1438,7 @@ def main() -> int:
             "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
+            **({"image_device_ms": k["image_device_ms"]} if "image_device_ms" in k else {}),
         })
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

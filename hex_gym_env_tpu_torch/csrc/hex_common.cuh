@@ -3,12 +3,12 @@
 // decoding, the flat-label union with its win test, the MLP towers, and the
 // masked Gumbel-max sample with its log-softmax.
 //
-// Two families.  The block-level functions (K2, K3, and K6's reductions):
+// Two families.  The block-level functions (K2, and K6's reductions):
 // one CTA holds one game; functions that take shared-memory arrays are
 // called by every thread of the CTA with the same per-game scalars, so the
 // scalars they return are the same on every thread and the control flow
 // around their __syncthreads() stays uniform.  The warp-level functions
-// (warp_*: K1, K4, K7): one warp plays one game, lane l owns entries l,
+// (warp_*: K1, K3, K4, K7): one warp plays one game, lane l owns entries l,
 // l + 32, ... of any length; they
 // synchronise with __syncwarp() and shuffles only, so the other games of a
 // CTA never wait for this one; every lane gets the same scalars back.  The
@@ -20,6 +20,7 @@
 #include <climits>
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <curand_kernel.h>
 
 namespace hex {
@@ -147,6 +148,12 @@ __host__ __device__ __forceinline__ int tower_size(const Mlp& m, int out) {
 
 __device__ __forceinline__ float activate(float v, int relu) {
   return relu ? fmaxf(v, 0.0f) : tanhf(v);
+}
+
+// v rounded to the nearest bfloat16 (ties to even), back in float32: the
+// bf16 bank's weights and its dots' left-hand sides (rollout_bank_bf16)
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // dot(x[0:in], W[:, j]) + b[j] in the order k = 0, 1, ...
@@ -341,8 +348,13 @@ __device__ __forceinline__ float dot_row(const float* x, const float* w, int in4
 // outputs r, r + n, ... of each layer (n = the team's threads), each a
 // dot_row of its weight row and the layer's input plus its bias, as
 // dense_unit.  x holds round4(F) floats, pads zero; h0/h1 hold 2 towers of
-// round4(H) floats, pads zero; y receives out0 (+ out1) outputs.  Every
-// layer ends with team.sync(), the last one too.
+// round4(H) floats (one, when t1 is null), pads zero; y receives out0 (+
+// out1) outputs.  Every layer ends with team.sync(), the last one too.
+// kBf16Hidden rounds each hidden unit to bf16 where it is written, so the
+// next layer's dot takes a bf16 left-hand side (the bf16 bank of K4): with
+// bf16 weights every product is exact in float32 and the fmaf chain sums
+// them as a float32 dot does, in another order than XLA's.
+template <bool kBf16Hidden = false>
 __device__ inline void team_mlp_towers(const Team& team, const Mlp& m, const float* t0, int out0,
                                        const float* t1, int out1, const float* x, float* h0,
                                        float* h1, float* y) {
@@ -368,7 +380,8 @@ __device__ inline void team_mlp_towers(const Team& team, const Mlp& m, const flo
       if (head) {
         y[j] = z;
       } else {
-        hout[(second ? H4 : 0) + jj] = activate(z, m.relu);
+        const float h = activate(z, m.relu);
+        hout[(second ? H4 : 0) + jj] = kBf16Hidden ? round_bf16(h) : h;
       }
     }
     team.sync();

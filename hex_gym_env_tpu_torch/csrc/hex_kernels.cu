@@ -218,48 +218,100 @@ __global__ void agent_kernel(AgentArgs a) {
 
 // ===========================================================================
 // K3 — opponent-bank pass.  Replaces ops/pallas_policy.py:_bank_kernel
-// (entry `bank_forward_sample`).  One game per CTA: the CTA reads its row's
-// member (pool slot, or the best at index P) straight from global memory —
-// no window-masked stack — runs that member's pi tower and action head, and
-// samples.  Bound: bytes, the members actually used (each ~42 KB at 7x7,
-// H = 64; all 31 at B = 256, 0.4 us of HBM time) plus per-game rows; the
-// operations, 2(F*H + (n_layers-1)*H*H + H*A) FLOP per game (~21 KFLOP),
-// take less.  Members stay L2-resident across CTAs.  Launch-bound at B = 256.
+// (entry `bank_forward_sample`).  Each row's member (pool slot, or the best
+// at index P1 - 1) runs its pi tower and action head on the row's
+// observation, then the masked Gumbel-max sample.  Bound: bytes, the members
+// actually used (each ~42 KB at 7x7, H = 64; all 31 at B = 256, 0.4 us of
+// HBM time) plus per-game rows; the operations, 2(F*H + (n_layers-1)*H*H +
+// H*A) FLOP per game (~21 KFLOP), take less.  At B = 256 the launch and the
+// game's serial path (three dependent layers, then the sample) set the time.
+//
+// The first design ran one game per CTA of 128 threads: thread j computed
+// output j in an fmaf loop that read the member's (in, out) weights from L2
+// one by one, block barriers between the layers and in the sample's
+// reductions, most lanes idle (10.1 us per call at B = 256 on one H100; the
+// same pattern was 62% of K4's step before its redesign).  Now K4's pieces:
+//   - the bank is transposed and padded once per rollout (hex_bank_image:
+//     tower_image_kernel, the layout of team_mlp_towers), so a thread's
+//     weight row is contiguous and dot_row has all of a row's loads in
+//     flight before its fmaf chain;
+//   - a team of kBankTeamWarps warps per game, up to kBankMaxGames games per
+//     CTA (fewer where B is small, as K1, so B = 256 runs 256 CTAs of one
+//     game):
+//     the team shares the forward pass behind the game's own named barrier,
+//     then the leader warp samples with warp_masked_sample (butterflies, ties
+//     to the lowest index); no block barrier anywhere;
+//   - lane l owns outputs l, l + 32, ... of any width, so any board the scan
+//     path takes runs (13x13 and up).
+// Measured on one H100 (7x7, B = 256, device time): 7.4 us on the image;
+// 10.7 us reading the (in, out) layout with a row's 32 loads in flight
+// before the chain; 9.4 us with one warp per game (but 21.8 against 40.5 us
+// at B = 4096); 8.4 us with the rows prefetched into L1 up front; 21.8 us
+// at 512 threads per CTA, whose launch bound cut the registers to 32 and
+// spilled dot_row.  Every game reads its member's ~45 KB from L2 (11 MB at
+// B = 256), which with the launch sets most of what is left.
+// Randomness: with bits the JAX map; without, each lane of a game draws from
+// curand_init(seed, game * 32 + lane, 0), as K4.
 // ===========================================================================
 
+constexpr int kBankTeamWarps = 2;  // warps per game
+// games per CTA at most: team_mlp_towers' dot_row holds 32 float4 in
+// registers, so a thread needs well over 128 registers, and 4 warps per CTA
+// keep a CTA within the SM's 64K
+constexpr int kBankMaxGames = 2;
+
 struct BankArgs {
-  const float* bank;  // (P1, tower_size) members, best last
+  const float* image;  // P1 transposed, padded pi towers (ttower_size(m, A) each)
   Mlp m;
-  const int8_t* obs;
-  const uint8_t* legal;
-  const int* member;  // (B,) member index
-  const uint32_t* bits;
+  int P1;
+  const int8_t* obs;        // (B, F)
+  const uint8_t* legal;     // (B, A)
+  const int* member;        // (B,) member index
+  const uint8_t* use_best;  // (B,) or null: where set, the best (P1 - 1) instead
+  const uint32_t* bits;     // (B, A) or null
   unsigned long long seed;
   int* o_action;
-  float* o_masked;
+  float* o_masked;  // (B, A)
+  int B, games_per_cta;
 };
 
-__global__ void bank_kernel(BankArgs a) {
-  extern __shared__ float smem_bank[];
-  __shared__ Scratch red;
+// one game's slice of shared memory (floats): x (round4(F)), h0 and h1
+// (round4(H) each), y (round4(A))
+__host__ __device__ inline int bank_game_floats(const Mlp& m) {
+  return hex::round4(m.F) + 2 * hex::round4(m.H) + hex::round4(m.A);
+}
+
+__global__ void __launch_bounds__(32 * kBankTeamWarps * kBankMaxGames) bank_kernel(BankArgs a) {
+  extern __shared__ __align__(16) float smem_bank[];
   const Mlp& m = a.m;
-  const int b = blockIdx.x;
-  float* x = smem_bank;
-  float* h0 = x + m.F;
-  float* h1 = h0 + 2 * m.H;
-  float* y = h1 + 2 * m.H;
-  for (int i = threadIdx.x; i < m.F; i += blockDim.x) x[i] = static_cast<float>(a.obs[b * m.F + i]);
-  __syncthreads();
+  const int wid = threadIdx.x >> 5, slot = wid / kBankTeamWarps;
+  const int b = blockIdx.x * a.games_per_cta + slot;
+  if (b >= a.B) return;  // the whole team: no barrier waits for it
+  const hex::Team team{static_cast<int>(threadIdx.x) % (32 * kBankTeamWarps), 32 * kBankTeamWarps,
+                       1 + slot};
+  const int F4 = hex::round4(m.F), H4 = hex::round4(m.H);
+  float* x = smem_bank + slot * bank_game_floats(m);
+  float* h0 = x + F4;
+  float* h1 = h0 + H4;
+  float* y = h1 + H4;
+  const int member = a.use_best != nullptr && a.use_best[b] ? a.P1 - 1 : a.member[b];
+  // the observation, and the pads the float4 reads cover, zeroed
+  for (int i = team.rank; i < F4; i += team.n_threads)
+    x[i] = i < m.F ? static_cast<float>(a.obs[static_cast<long long>(b) * m.F + i]) : 0.0f;
+  for (int i = m.H + team.rank; i < H4; i += team.n_threads) h0[i] = h1[i] = 0.0f;
+  team.sync();
+  const float* w = a.image + static_cast<long long>(member) * hex::ttower_size(m, m.A);
+  hex::team_mlp_towers(team, m, w, m.A, nullptr, 0, x, h0, h1, y);
+  if (wid % kBankTeamWarps != 0) return;  // a helper: its share is done
 
-  const float* w = a.bank + static_cast<long long>(a.member[b]) * hex::tower_size(m, m.A);
-  hex::mlp_towers(m, w, m.A, nullptr, 0, x, h0, h1, y);
-
+  const int lane = hex::lane_id();
+  const long long row = static_cast<long long>(b) * m.A;
   curandStatePhilox4_32_10_t st;
-  if (a.bits == nullptr) philox_init(&st, a.seed);
-  const Bits bits{a.bits != nullptr ? a.bits + b * m.A : nullptr, &st};
-  const int action = hex::masked_sample(y, a.legal + b * m.A, m.A, true, bits,
-                                        a.o_masked + b * m.A, nullptr, red);
-  if (threadIdx.x == 0) a.o_action[b] = action;
+  if (a.bits == nullptr) curand_init(a.seed, static_cast<unsigned long long>(b) * 32 + lane, 0, &st);
+  const Bits bits{a.bits != nullptr ? a.bits + row : nullptr, &st};
+  const int action = hex::warp_masked_sample(y, a.legal + row, m.A, true, bits, nullptr);
+  for (int j = lane; j < m.A; j += 32) a.o_masked[row + j] = y[j];  // the lane's own entries
+  if (lane == 0) a.o_action[b] = action;
 }
 
 // ===========================================================================
@@ -318,6 +370,18 @@ __global__ void bank_kernel(BankArgs a) {
 // CTA, and a restored generator (which gives the seed) replays them.  The
 // production stream differs from the one-game-per-CTA kernel's; its
 // distribution does not.
+//
+// The bf16 bank (rollout_bank_bf16; JAX ops/pallas_rollout.py bank_bf16) is
+// a second instance of the kernel, kBankBf16, not a branch in the time loop:
+// tower_image_kernel rounds the members' weights and biases to bf16 (round
+// to nearest even), and the opponent's forward rounds each hidden unit to
+// bf16 where it writes it, so each of its dots takes a bf16 left-hand side
+// (the observation in {-1, 0, 1} is exact) and bf16 weights, whose products
+// are exact in float32, summed in float32 with the bias added after the dot:
+// JAX's rule up to the order of the sum.  The agent's towers and the
+// opening-move table stay float32.  Where the caller passes opp_logits, the
+// kernel writes the opponent's logits of every step there: the check of
+// this instance compares them, since the record holds only its actions.
 // ===========================================================================
 
 struct RolloutArgs {
@@ -364,6 +428,7 @@ struct RolloutArgs {
   // and the bytes of one game's slice
   int games_per_cta, agent_in_smem, member_in_smem, game_bytes;
   long long* timers;  // (B, T, kRollMarks) clock64 stamps, or null
+  float* o_opp_logits;  // (T, B, A) the opponent's logits at each step, or null
 };
 
 constexpr int kResetLanes = 128;
@@ -397,19 +462,26 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// The transposed, padded towers of team_mlp_towers, one per blockIdx.y: 0
-// the agent's pi tower, 1 its vf tower, 2 + i bank member i; out holds
-// them in that order.
-__global__ void tower_image_kernel(const float* agent, const float* bank, Mlp m, float* out) {
-  const int inst = blockIdx.y, L = m.n_layers, H = m.H;
+// The transposed, padded towers of team_mlp_towers: instance 0 the agent's
+// pi tower, 1 its vf tower, 2 + i bank member i; block row blockIdx.y builds
+// instance first + blockIdx.y, and out holds the instances from `first` on,
+// in that order (first = 2: the bank alone, K3's image).  round_members
+// rounds the members' weights and biases to bf16 (K4's bf16 bank).
+__global__ void tower_image_kernel(const float* agent, const float* bank, Mlp m, float* out,
+                                   int first, int round_members) {
+  const int inst = first + blockIdx.y, L = m.n_layers, H = m.H;
   const int head = inst == 1 ? 1 : m.A;
   const int pi_t = hex::ttower_size(m, m.A);
+  auto offset = [&](int i) -> long long {
+    return i == 0   ? 0
+           : i == 1 ? pi_t
+                    : pi_t + hex::ttower_size(m, 1) + static_cast<long long>(i - 2) * pi_t;
+  };
   const float* src = inst == 0   ? agent
                      : inst == 1 ? agent + hex::tower_size(m, m.A)
                                  : bank + static_cast<long long>(inst - 2) * hex::tower_size(m, m.A);
-  float* dst = out + (inst == 0   ? 0
-                      : inst == 1 ? pi_t
-                                  : pi_t + hex::ttower_size(m, 1) + static_cast<long long>(inst - 2) * pi_t);
+  float* dst = out + (offset(inst) - offset(first));
+  const bool round = round_members && inst >= 2;
   const int total = hex::ttower_size(m, head);
   for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < total; q += gridDim.x * blockDim.x) {
     int woff = 0, poff = 0, in = m.F;
@@ -425,7 +497,7 @@ __global__ void tower_image_kernel(const float* agent, const float* bank, Mlp m,
         } else if (e - n_out * S < n_out) {
           v = src[poff + in * n_out + (e - n_out * S)];
         }
-        dst[q] = v;
+        dst[q] = round ? hex::round_bf16(v) : v;
         break;
       }
       woff += sz;
@@ -449,6 +521,7 @@ __device__ __forceinline__ void warp_observe(const Board& g, const uint8_t* st0,
   __syncwarp();
 }
 
+template <bool kBankBf16>
 __global__ void rollout_kernel(RolloutArgs a) {
   extern __shared__ __align__(16) float smem_roll[];
   const Mlp& m = a.m;
@@ -497,7 +570,7 @@ __global__ void rollout_kernel(RolloutArgs a) {
       team.sync();  // the opponent's observation and member are ready
       const float* mweights =
           a.member_in_smem ? mw : a.bank + static_cast<long long>(*member_of) * member_size;
-      hex::team_mlp_towers(team, m, mweights, A, nullptr, 0, x, h0, h1, y);
+      hex::team_mlp_towers<kBankBf16>(team, m, mweights, A, nullptr, 0, x, h0, h1, y);
     }
     return;
   }
@@ -571,8 +644,10 @@ __global__ void rollout_kernel(RolloutArgs a) {
       if (lane == 0) *member_of = member;
     }
     team.sync();
-    hex::team_mlp_towers(team, m, mweights, A, nullptr, 0, x, h0, h1, y);
+    hex::team_mlp_towers<kBankBf16>(team, m, mweights, A, nullptr, 0, x, h0, h1, y);
     roll_mark(tk, 4, lane == 0);
+    if (a.o_opp_logits != nullptr)
+      for (int j = lane; j < A; j += 32) a.o_opp_logits[row * A + j] = y[j];
     const Bits obits{injected ? a.opp_bits + row * A : nullptr, &st};
     const int act_o = hex::warp_masked_sample(y, legal, A, true, obits, nullptr);
     roll_mark(tk, 5, lane == 0);
@@ -810,12 +885,13 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// K1's and K7's games per CTA for B games (see the launch shape above)
-cudaError_t env_games_per_cta(int B, int* gpc) {
+// games per CTA for B games, at most max_games: no more than keep one CTA
+// per SM where B allows (see K1's and K7's launch shape above)
+cudaError_t env_games_per_cta(int B, int* gpc, int max_games = kEnvMaxGames) {
   int dev = 0, n_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  *gpc = std::max(1, std::min(kEnvMaxGames, B / std::max(n_sm, 1)));
+  *gpc = std::max(1, std::min(max_games, B / std::max(n_sm, 1)));
   return e;
 }
 
@@ -829,6 +905,12 @@ int launch_env(void (*kernel)(Args), Args a, int L, void* stream) {
   kernel<<<(a.B + a.games_per_cta - 1) / a.games_per_cta, 32 * a.games_per_cta, smem,
            static_cast<cudaStream_t>(stream)>>>(a);
   return finish_launch();
+}
+
+// K4's instance: the float32 bank, or the bf16 bank
+const void* rollout_fn(int bank_bf16) {
+  return bank_bf16 ? reinterpret_cast<const void*>(rollout_kernel<true>)
+                   : reinterpret_cast<const void*>(rollout_kernel<false>);
 }
 
 }  // namespace
@@ -870,17 +952,35 @@ int hex_agent(const void* params, int F, int H, int A, int n_layers, int relu, c
   return finish_launch();
 }
 
-int hex_bank(const void* bank, int F, int H, int A, int n_layers, int relu, const void* obs,
-             const void* legal, const void* member, const void* bits, unsigned long long seed,
-             void* o_action, void* o_masked, int B, void* stream) {
-  BankArgs a{static_cast<const float*>(bank), Mlp{F, H, A, n_layers, relu},
-             static_cast<const int8_t*>(obs), static_cast<const uint8_t*>(legal),
-             static_cast<const int*>(member), static_cast<const uint32_t*>(bits), seed,
-             static_cast<int*>(o_action), static_cast<float*>(o_masked)};
-  const int smem = mlp_smem_bytes(a.m);
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(bank_kernel), smem);
+int hex_bank(const void* image, int F, int H, int A, int n_layers, int relu, int P1,
+             const void* obs, const void* legal, const void* member, const void* use_best,
+             const void* bits, unsigned long long seed, void* o_action, void* o_masked, int B,
+             void* stream) {
+  BankArgs a{static_cast<const float*>(image),    Mlp{F, H, A, n_layers, relu},
+             P1,                                   static_cast<const int8_t*>(obs),
+             static_cast<const uint8_t*>(legal),   static_cast<const int*>(member),
+             static_cast<const uint8_t*>(use_best), static_cast<const uint32_t*>(bits),
+             seed,                                 static_cast<int*>(o_action),
+             static_cast<float*>(o_masked),        B,
+             0};
+  cudaError_t e = env_games_per_cta(B, &a.games_per_cta, kBankMaxGames);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bank_kernel<<<B, 128, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const int smem = a.games_per_cta * bank_game_floats(a.m) * static_cast<int>(sizeof(float));
+  if ((e = allow_smem(reinterpret_cast<const void*>(bank_kernel), smem)) != cudaSuccess)
+    return static_cast<int>(e);
+  bank_kernel<<<(B + a.games_per_cta - 1) / a.games_per_cta, 32 * kBankTeamWarps * a.games_per_cta,
+                smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return finish_launch();
+}
+
+// K3's bank image: the P1 members of bank (P1, tower_size(m, A)) transposed
+// and padded into out (P1 x ttower_size(m, A) floats), once per rollout
+int hex_bank_image(const void* bank, int F, int H, int A, int n_layers, int P1, void* out,
+                   void* stream) {
+  const Mlp m{F, H, A, n_layers, 0};
+  const int blocks = (hex::ttower_size(m, A) + 255) / 256;
+  tower_image_kernel<<<dim3(blocks, P1), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      nullptr, static_cast<const float*>(bank), m, static_cast<float*>(out), 2, 0);
   return finish_launch();
 }
 
@@ -889,15 +989,17 @@ int hex_bank(const void* bank, int F, int H, int A, int n_layers, int relu, cons
 // bytes].  The first of (agent and members in shared memory), (agent only),
 // (neither) that fits one game, then the games per CTA (at most 8) that
 // need the fewest waves of CTAs on the card, the fewest games among equals.
-int hex_rollout_plan(int F, int H, int A, int n_layers, int n, int L, int B, int* plan) {
+// bank_bf16 picks the bf16-bank instance.
+int hex_rollout_plan(int F, int H, int A, int n_layers, int n, int L, int B, int bank_bf16,
+                     int* plan) {
   const Mlp m{F, H, A, n_layers, 0};
   const Board g{n, n * n, L};
   // K4 is held against its twin on boards up to 11x11 only (L = 128), the
   // sizes of the preset grid; ops/rollout_kernel.py gates it the same way
   if (L > 128) return static_cast<int>(cudaErrorInvalidValue);
   const int limit = 220 * 1024;
-  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(rollout_kernel),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  const void* kernel = rollout_fn(bank_bf16);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, n_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
@@ -913,8 +1015,7 @@ int hex_rollout_plan(int F, int H, int A, int n_layers, int n, int L, int B, int
       const int bytes = (mode[0] ? agent_bytes : 0) + gpc * gb;
       if (bytes > limit) break;
       int per_sm = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, reinterpret_cast<const void*>(rollout_kernel), 32 * kTeamWarps * gpc, bytes);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kTeamWarps * gpc, bytes);
       if (e != cudaSuccess) return static_cast<int>(e);
       if (per_sm < 1) break;
       const int ctas = (B + gpc - 1) / gpc;
@@ -941,8 +1042,9 @@ int hex_rollout(const void* agent, const void* bank, const void* first, void* im
                 void* o_obs, void* o_ints, void* o_flts, void* o_stones, void* o_labels,
                 void* o_to_move, void* o_done, void* o_empty, void* o_moves, void* o_seat,
                 void* o_use_best, void* o_opp_idx, int B, int n, int L, int T, float best_prob,
-                int per_episode_seat, int eval_mode, int games_per_cta, int agent_in_smem,
-                int member_in_smem, void* timers, void* stream) {
+                int per_episode_seat, int eval_mode, int bank_bf16, int games_per_cta,
+                int agent_in_smem, int member_in_smem, void* timers, void* opp_logits,
+                void* stream) {
   RolloutArgs a{};
   a.m = Mlp{F, H, A, n_layers, relu};
   float* img = static_cast<float*>(image);
@@ -983,20 +1085,25 @@ int hex_rollout(const void* agent, const void* bank, const void* first, void* im
   a.per_episode_seat = per_episode_seat;
   a.eval_mode = eval_mode;
   a.timers = static_cast<long long*>(timers);
+  a.o_opp_logits = static_cast<float*>(opp_logits);
   a.games_per_cta = games_per_cta;
   a.agent_in_smem = agent_in_smem;
   a.member_in_smem = member_in_smem;
   a.game_bytes = rollout_game_bytes(a.m, a.g, member_in_smem != 0);
   const int smem = (agent_in_smem ? (hex::ttower_size(a.m, A) + hex::ttower_size(a.m, 1)) * 4 : 0) +
                    games_per_cta * a.game_bytes;
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(rollout_kernel), smem);
+  cudaError_t e = allow_smem(rollout_fn(bank_bf16), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int image_blocks = (hex::ttower_size(a.m, A) + 255) / 256;
   tower_image_kernel<<<dim3(image_blocks, 2 + P1), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(agent), static_cast<const float*>(bank), a.m, img);
+      static_cast<const float*>(agent), static_cast<const float*>(bank), a.m, img, 0, bank_bf16);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  rollout_kernel<<<(B + games_per_cta - 1) / games_per_cta, 32 * kTeamWarps * games_per_cta, smem,
-                   static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid((B + games_per_cta - 1) / games_per_cta), block(32 * kTeamWarps * games_per_cta);
+  if (bank_bf16) {
+    rollout_kernel<true><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    rollout_kernel<false><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return finish_launch();
 }
 

@@ -24,33 +24,105 @@ namespace {
 
 // ===========================================================================
 // K5 — GAE.  Replaces ops/pallas_gae.py:_gae_kernel (entry `compute_gae`).
-// One thread per env column walks t from T-1 down to 0; neighbouring threads
-// read neighbouring words of each (T, B) row, so every load is coalesced.
+// Each env column walks t from T-1 down to 0:
+//   delta = r + gamma*next_v*nt - v,  adv = delta + gl*nt*adv,  ret = adv + v
+// (nt = 1 - done, next_v = v[t+1], or the last value at t = T-1).  Every
+// operation is rounded on its own (__fmul_rn/__fadd_rn/__fsub_rn, which
+// nvcc never contracts into an FMA), in the order of the twin
+// train/gae.compute_gae, so the two agree exactly; a parallel scan over t
+// would round otherwise, so the walk through adv stays serial.
+//
 // Bound: bytes — T*B*(4+4+1) + 4B in and 2*T*B*4 out (~0.6 MB at T = 128,
-// B = 256; 0.19 us at 3.35 TB/s).  The recurrence is serial in t, so with
-// B = 256 only 256 threads run; the kernel is latency-bound (T dependent
-// steps).  Every operation is rounded on its own (__fmul_rn/__fadd_rn/
-// __fsub_rn, which nvcc never contracts into an FMA), in the order of the
-// twin train/gae.compute_gae, so the two agree exactly.
+// B = 256; 0.17 us at 3.35 TB/s).  The serial floor is the chain through
+// adv, a multiply and an add per step (~8 cycles; ~0.6 us at T = 128).
+//
+// The first design gave one thread to each column in CTAs of 128 threads
+// (B = 256 ran on 2 SMs) and loaded r, v and done inside the loop, so every
+// step waited out a memory round trip: 29.5 us at the preset (T = 128,
+// B = 256; ~230 ns per step, one H100).  A warp per 32 columns holding
+// chunks of 16 or 32 steps in registers, the next chunk's loads issued
+// before the current one's walk, took 7.8 and 12.5 us (once a compare right
+// after each done byte's load, which made every step wait for its load, was
+// moved to the walk): a single warp cannot keep enough loads in flight.
+// Now only the chain is serial:
+//   - a CTA of kGaeWarps warps owns 32 columns (B = 256 runs 8 CTAs) and
+//     takes the steps in chunks of kGaeSteps from the top; every thread of
+//     the CTA loads its share of the chunk (a column, every kGaeWarps-th
+//     step: all its loads in flight before any use) and computes each
+//     step's delta and gl*nt, which need no adv, into shared memory with v;
+//   - after a barrier, warp 0 walks the chunk through adv = delta + c*adv,
+//     two roundings per step, and writes adv and ret coalesced; a barrier
+//     later the CTA takes the next chunk (T has no cap: the strict presets
+//     run T = 2048);
+//   - inputs may be strided views (the rollout record's reward and value
+//     lanes), so the caller copies nothing; the outputs are one (2, T, B)
+//     buffer.
+// At the preset this took 5.5 us (one H100; 4 warps 7.1 us, 16 warps 5.5 us,
+// chunks of 64 steps 7.2 us), 74 us at T = 2048, B = 256.
 // ===========================================================================
 
-__global__ void gae_kernel(const float* __restrict__ rewards, const float* __restrict__ values,
-                           const uint8_t* __restrict__ dones, const float* __restrict__ last_values,
-                           float* __restrict__ o_adv, float* __restrict__ o_ret, int T, int B,
-                           float gamma, float gl) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float adv = 0.0f;
-  float next_v = last_values[b];
-  for (int t = T - 1; t >= 0; --t) {
-    const long long i = static_cast<long long>(t) * B + b;
-    const float v = values[i];
-    const float nt = __fsub_rn(1.0f, dones[i] ? 1.0f : 0.0f);
-    const float delta = __fsub_rn(__fadd_rn(rewards[i], __fmul_rn(__fmul_rn(gamma, next_v), nt)), v);
-    adv = __fadd_rn(delta, __fmul_rn(__fmul_rn(gl, nt), adv));
-    o_adv[i] = adv;
-    o_ret[i] = __fadd_rn(adv, v);
-    next_v = v;
+constexpr int kGaeWarps = 8;
+constexpr int kGaeSteps = 128;  // steps per chunk: 3 x 128 x 32 floats of shared memory
+
+struct GaeArgs {
+  const float* rewards;  // (T, B) at element strides (r_t, r_b)
+  const float* values;
+  const uint8_t* dones;
+  const float* last_values;  // (B,) at stride l_b
+  long long r_t, r_b, v_t, v_b, d_t, d_b, l_b;
+  float* o_adv;  // (T, B) contiguous
+  float* o_ret;
+  int T, B;
+  float gamma, gl;
+};
+
+__global__ void __launch_bounds__(32 * kGaeWarps) gae_kernel(const GaeArgs a) {
+  __shared__ float s_delta[kGaeSteps][32], s_c[kGaeSteps][32], s_v[kGaeSteps][32];
+  constexpr int kPer = kGaeSteps / kGaeWarps;  // steps a thread loads per chunk
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * 32 + lane;
+  const bool live = b < a.B;  // every thread reaches every barrier
+  float adv = 0.0f;           // warp 0's carry
+  for (int t_hi = a.T - 1; t_hi >= 0; t_hi -= kGaeSteps) {
+    const int n = min(kGaeSteps, t_hi + 1);
+    // ---- the chunk's loads, then its delta and gl*nt (step k = t_hi - t)
+    float r[kPer], v[kPer], nv[kPer];
+    uint32_t d[kPer];  // raw bytes: compared only after every load is issued
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = wid + kGaeWarps * i;
+      const long long t = t_hi - k;
+      if (live && k < n) {
+        r[i] = a.rewards[t * a.r_t + b * a.r_b];
+        v[i] = a.values[t * a.v_t + b * a.v_b];
+        d[i] = a.dones[t * a.d_t + b * a.d_b];
+        nv[i] = t + 1 < a.T ? a.values[(t + 1) * a.v_t + b * a.v_b] : a.last_values[b * a.l_b];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = wid + kGaeWarps * i;
+      if (live && k < n) {
+        const float nt = __fsub_rn(1.0f, d[i] ? 1.0f : 0.0f);
+        s_delta[k][lane] = __fsub_rn(__fadd_rn(r[i], __fmul_rn(__fmul_rn(a.gamma, nv[i]), nt)), v[i]);
+        s_c[k][lane] = __fmul_rn(a.gl, nt);
+        s_v[k][lane] = v[i];
+      }
+    }
+    __syncthreads();
+    // ---- warp 0 walks the chain
+    if (wid == 0 && live) {
+      const long long o = static_cast<long long>(t_hi) * a.B + b;
+      float* oa = a.o_adv + o;
+      float* orr = a.o_ret + o;
+#pragma unroll 8
+      for (int k = 0; k < n; ++k) {
+        adv = __fadd_rn(s_delta[k][lane], __fmul_rn(s_c[k][lane], adv));
+        oa[-k * a.B] = adv;
+        orr[-k * a.B] = __fadd_rn(adv, s_v[k][lane]);
+      }
+    }
+    __syncthreads();  // the chunk's shared memory is free again
   }
 }
 
@@ -780,13 +852,18 @@ int finish_launch() { return static_cast<int>(cudaGetLastError()); }
 
 extern "C" {
 
-int hex_gae(const void* rewards, const void* values, const void* dones, const void* last_values,
-            void* o_adv, void* o_ret, int T, int B, float gamma, float gl, void* stream) {
-  const int threads = 128;
-  gae_kernel<<<(B + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rewards), static_cast<const float*>(values),
-      static_cast<const uint8_t*>(dones), static_cast<const float*>(last_values),
-      static_cast<float*>(o_adv), static_cast<float*>(o_ret), T, B, gamma, gl);
+int hex_gae(const void* rewards, long long r_t, long long r_b, const void* values, long long v_t,
+            long long v_b, const void* dones, long long d_t, long long d_b, const void* last_values,
+            long long l_b, void* o_out, int T, int B, float gamma, float gl, void* stream) {
+  float* out = static_cast<float*>(o_out);  // (2, T, B): advantages, then returns
+  const GaeArgs a{static_cast<const float*>(rewards),
+                  static_cast<const float*>(values),
+                  static_cast<const uint8_t*>(dones),
+                  static_cast<const float*>(last_values),
+                  r_t, r_b, v_t, v_b, d_t, d_b, l_b,
+                  out, out + static_cast<long long>(T) * B,
+                  T, B, gamma, gl};
+  gae_kernel<<<(B + 31) / 32, 32 * kGaeWarps, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return finish_launch();
 }
 

@@ -43,35 +43,42 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 KERNELS = (
-    "k1_step", "k2_agent", "k3_bank", "k4_rollout", "k5_gae", "k6_ppo", "k7_random_rollout",
+    "k1_step", "k2_agent", "k3_bank", "k3_bank_image", "k4_rollout", "k4_rollout_bf16", "k5_gae",
+    "k6_ppo", "k7_random_rollout",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 U64 = ctypes.c_uint64
+I64 = ctypes.c_int64
 F32 = ctypes.c_float
 
 # argument types of each C entry, in order (see csrc/*.cu)
 _ARGTYPES = {
     "hex_step": [P] * 9 + [P, P] + [I, I, I, P],  # state in, action, active; ints, bytes
     "hex_agent": [P, I, I, I, I, I, P, P, P, U64, P, P, P, P, I, P],
-    "hex_bank": [P, I, I, I, I, I, P, P, P, P, U64, P, P, I, P],
+    "hex_bank": [P, I, I, I, I, I, I, P, P, P, P, P, U64, P, P, I, P],
+    "hex_bank_image": [P, I, I, I, I, I, P, P],
     "hex_rollout": (
         [P, P, P, P, I, I, I, I, I, I]  # weights, image scratch, dims
         + [P] * 9  # state in
         + [P, P, P, P, U64]  # bits + philox seed
         + [P, P, P]  # obs / ints / flts
         + [P] * 9  # state out
-        + [I, I, I, I, F32, I, I]  # B, n, L, T, best_prob, per_episode_seat, eval_mode
-        + [I, I, I, P, P]  # games per CTA, agent / members in smem, timers, stream
+        + [I, I, I, I, F32, I, I, I]  # B, n, L, T, best_prob, per_episode_seat, eval_mode, bf16
+        + [I, I, I, P, P, P]  # games per CTA, agent / members in smem, timers, opp logits, stream
     ),
     "hex_random_rollout": (
         [P] * 5 + [U64]  # state in, bits, philox seed
         + [P, P]  # out: ints, bytes
         + [I, I, I, I, P]  # B, n, L, T, stream
     ),
-    "hex_gae": [P] * 6 + [I, I, F32, F32, P],
+    "hex_gae": (
+        [P, I64, I64] * 3  # rewards, values, dones, each with its (t, b) strides
+        + [P, I64, P]  # last values and stride, out (2, T, B)
+        + [I, I, F32, F32, P]
+    ),
     "hex_ppo": (
         [P] * 15  # obs, flt, idx, order, bias, p, m, v, stats + 6 scratch
         + [I] * 7  # F, H, A, n_layers, relu, mb, G
@@ -80,7 +87,7 @@ _ARGTYPES = {
     ),
     "hex_ppo_plan": [I, I, I, I, I, P],  # launches nothing: no stream
     "hex_rollout_image_floats": [I] * 5,  # a size: no stream
-    "hex_rollout_plan": [I] * 7 + [P],  # launches nothing: no stream
+    "hex_rollout_plan": [I] * 8 + [P],  # launches nothing: no stream
     "hex_env_plan": [I, I, I, P],  # launches nothing: no stream
 }
 
@@ -197,13 +204,16 @@ def ppo_plan(F: int, H: int, A: int, n_layers: int, mb: int) -> tuple[int, int, 
     return tuple(plan)
 
 
-def rollout_plan(F: int, H: int, A: int, n_layers: int, n: int, L: int, B: int):
-    """K4's launch shape on the current device: ``(games per CTA, agent in
-    shared memory, bank members in shared memory, shared-memory bytes)``.
-    Raises on an error code."""
+def rollout_plan(F: int, H: int, A: int, n_layers: int, n: int, L: int, B: int,
+                 bank_bf16: bool = False):
+    """K4's launch shape on the current device, for its float32-bank or
+    bf16-bank instance: ``(games per CTA, agent in shared memory, bank
+    members in shared memory, shared-memory bytes)``.  Raises on an error
+    code."""
     handle = lib()
     plan = (ctypes.c_int * 4)()
-    code = handle.hex_rollout_plan(F, H, A, n_layers, n, L, B, ctypes.addressof(plan))
+    code = handle.hex_rollout_plan(F, H, A, n_layers, n, L, B, int(bank_bf16),
+                                   ctypes.addressof(plan))
     if code != 0:
         raise RuntimeError(f"hex_rollout_plan failed: {handle.hex_error_string(code).decode()}")
     return tuple(plan)
@@ -246,13 +256,15 @@ def philox_seed(generator: torch.Generator | None) -> int:
     )
 
 
-def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> torch.Tensor:
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+               strided: bool = False) -> torch.Tensor:
     """Raise unless ``t`` is a CUDA tensor of ``dtype`` and ``shape``;
-    return it contiguous (itself when it already is)."""
+    return it contiguous (itself when it already is), or with ``strided``
+    as it is, for a kernel that takes its strides."""
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on a CUDA device")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.shape != shape:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    return t if t.is_contiguous() else t.contiguous()
+    return t if strided or t.is_contiguous() else t.contiguous()

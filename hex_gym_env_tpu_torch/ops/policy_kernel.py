@@ -7,7 +7,8 @@ Counterparts of the JAX package's ``ops/pallas_policy.py``:
   value, in one launch.
 - K3 ``bank_forward_sample`` (``_bank_kernel``): for each row, the pi tower
   and action head of that row's opponent (a pool slot, or the best at index
-  P), then the masked Gumbel-max sample, in one launch.
+  P), then the masked Gumbel-max sample, in one launch, on the bank
+  operand built once per rollout (``PolicyOps.bank_operand``).
 
 Weights travel as flat float32 runs, one per tower, with the kernels laid
 out (in, out) so that the CUDA threads computing neighbouring outputs read
@@ -16,8 +17,12 @@ neighbouring words (layout in ``csrc/hex_common.cuh``):
 - agent: the pi tower with its action head, then the vf tower with its
   value head (``pack_agent``);
 - bank: one row per member, best last, each a pi tower with its action head
-  (``stack_bank``), (P1, S).  The kernel reads each row's member straight
-  from global memory; the TPU's window-masked stack is not needed.
+  (``stack_bank``), (P1, S).  The K3 kernel reads it as a bank image
+  (``bank_image_cuda``, twin ``bank_image_twin``): each layer's weights
+  transposed, one padded row per output (the layout of
+  ``csrc/hex_common.cuh`` ``team_mlp_towers``), built once per rollout
+  beside the stack, the pair a ``BankOperand``.  The TPU's window-masked
+  stack is not needed.
 
 Each pass has a plain PyTorch twin here (``*_twin``) that computes the same
 function from the same packed weights.  The wrappers take the kernel for a
@@ -84,6 +89,79 @@ def tower_views(flat: torch.Tensor, d: MlpDims, out: int):
     return views
 
 
+# the transposed, padded layout of hex_common.cuh (round4, row_stride,
+# tlayer_size, ttower_size): each layer is its n_out rows of n_in weights at
+# row stride row_stride(n_in) (pads zero), then its n_out biases padded to
+# round4(n_out); a tower is its layers in order, the head last
+
+
+def round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def row_stride(n: int) -> int:
+    """n rounded up to 4 floats, with stride / 4 odd (distinct banks for the
+    16-byte reads of neighbouring rows)."""
+    s = round4(n)
+    return s + 4 if (s >> 2) % 2 == 0 else s
+
+
+def tlayer_size(n_in: int, n_out: int) -> int:
+    return n_out * row_stride(n_in) + round4(n_out)
+
+
+def ttower_size(d: MlpDims, out: int) -> int:
+    """Floats in one transposed, padded tower with an ``out``-wide head."""
+    return tlayer_size(d.F, d.H) + (d.n_layers - 1) * tlayer_size(d.H, d.H) + tlayer_size(d.H, out)
+
+
+def bank_image_twin(stacked: torch.Tensor, d: MlpDims) -> torch.Tensor:
+    """Plain PyTorch of K3's bank image: (P1, ``ttower_size(d, A)``)."""
+    P1 = stacked.shape[0]
+    parts = []
+    for W, b in tower_views(stacked, d, d.A):
+        n_in, n_out = W.shape[-2:]
+        rows = torch.zeros((P1, n_out, row_stride(n_in)), dtype=torch.float32, device=stacked.device)
+        rows[:, :, :n_in] = W.transpose(1, 2)
+        bias = torch.zeros((P1, round4(n_out)), dtype=torch.float32, device=stacked.device)
+        bias[:, :n_out] = b
+        parts += [rows.reshape(P1, -1), bias]
+    return torch.cat(parts, dim=1)
+
+
+def bank_image_cuda(stacked: torch.Tensor, d: MlpDims) -> torch.Tensor:
+    """K3's bank image on the card (``tower_image_kernel``), the twin's
+    values exactly."""
+    P1 = stacked.shape[0]
+    stacked = cuda_lib.check_cuda("stacked", stacked, torch.float32, (P1, tower_size(d, d.A)))
+    image = torch.empty((P1, ttower_size(d, d.A)), dtype=torch.float32, device=stacked.device)
+    p = cuda_lib.ptr
+    cuda_lib.launch("k3_bank_image", "hex_bank_image",
+                    p(stacked), d.F, d.H, d.A, d.n_layers, P1, p(image))
+    return image
+
+
+class BankOperand(NamedTuple):
+    """The bank as the bank pass reads it, built once per rollout
+    (``bank_operand``): ``stacked`` (P1, S), the members then the best, which
+    the twin reads; and where the kernel runs, ``image``, its bank image
+    (``bank_image_cuda``), which the kernel reads."""
+
+    stacked: torch.Tensor
+    image: Optional[torch.Tensor] = None
+
+
+def bank_operand(stacked: torch.Tensor, d: MlpDims, impl: str = "auto") -> BankOperand:
+    """``stacked`` with its bank image where ``impl`` takes the kernel
+    (``use_kernel``), alone where it takes the twin."""
+    return BankOperand(stacked, bank_image_cuda(stacked, d) if use_kernel(stacked, impl) else None)
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bfloat16 (ties to even), as float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def _act(d: MlpDims):
     return torch.relu if d.relu else torch.tanh
 
@@ -98,13 +176,19 @@ def tower_apply(views, x: torch.Tensor, d: MlpDims) -> torch.Tensor:
     return h @ W + b
 
 
-def tower_apply_rows(views, idx: torch.Tensor, x: torch.Tensor, d: MlpDims) -> torch.Tensor:
-    """Stacked towers (leading member axis), row ``r`` through member ``idx[r]``."""
+def tower_apply_rows(
+    views, idx: torch.Tensor, x: torch.Tensor, d: MlpDims, bf16: bool = False
+) -> torch.Tensor:
+    """Stacked towers (leading member axis), row ``r`` through member
+    ``idx[r]``.  ``bf16`` rounds each hidden activation to bf16 before the
+    next dot (the bf16 bank; the weights are rounded by the caller)."""
     act = _act(d)
     h = x[:, None, :]
     idx = idx.long()
     for W, b in views[:-1]:
         h = act(torch.bmm(h, W[idx]) + b[idx][:, None, :])
+        if bf16:
+            h = bf16_round(h)
     W, b = views[-1]
     return (torch.bmm(h, W[idx]) + b[idx][:, None, :])[:, 0]
 
@@ -212,10 +296,18 @@ def agent_forward_sample(
 # ---------------------------------------------------------------------------
 
 
-def bank_logits_twin(stacked, d: MlpDims, obs_flat, member_idx) -> torch.Tensor:
-    """Each row's member's action logits, (B, A)."""
+def bank_logits_twin(stacked, d: MlpDims, obs_flat, member_idx, bf16: bool = False) -> torch.Tensor:
+    """Each row's member's action logits, (B, A).
+
+    ``bf16`` is the bf16 bank of the fused rollout (``rollout_bank_bf16``,
+    JAX ``ops/pallas_rollout.py`` ``bank_bf16``): the members' weights and
+    biases rounded to bf16, each dot's left-hand side rounded to bf16 (the
+    observation is exact; each hidden activation is rounded), the sums and
+    the bias additions in float32."""
+    if bf16:
+        stacked = bf16_round(stacked)
     views = tower_views(stacked, d, d.A)
-    return tower_apply_rows(views, member_idx, obs_flat.to(torch.float32), d)
+    return tower_apply_rows(views, member_idx, obs_flat.to(torch.float32), d, bf16)
 
 
 def bank_forward_sample_twin(stacked, d: MlpDims, obs_flat, legal, member_idx, bits):
@@ -225,33 +317,35 @@ def bank_forward_sample_twin(stacked, d: MlpDims, obs_flat, legal, member_idx, b
     return masked_ops.sample_masked(masked, bits), masked
 
 
-def _bank_cuda(stacked, d: MlpDims, obs_flat, legal, member_idx, bits, generator):
+def _bank_cuda(image, P1: int, d: MlpDims, obs_flat, legal, member_idx, use_best, bits, generator):
     B = obs_flat.shape[0]
     chk = cuda_lib.check_cuda
-    P1 = stacked.shape[0]
-    stacked = chk("stacked", stacked, torch.float32, (P1, tower_size(d, d.A)))
+    image = chk("image", image, torch.float32, (P1, ttower_size(d, d.A)))
     obs = chk("obs", obs_flat.to(torch.int8), torch.int8, (B, d.F))
     legal = chk("legal", legal.to(torch.bool), torch.bool, (B, d.A))
     member = chk("member_idx", member_idx.to(torch.int32), torch.int32, (B,))
+    if use_best is not None:
+        use_best = chk("use_best", use_best.to(torch.bool), torch.bool, (B,))
     seed = 0
     if bits is not None:
         bits = chk("bits", bits, torch.int32, (B, d.A))
     else:
         seed = cuda_lib.philox_seed(generator)
-    dev = obs.device
-    action = torch.empty((B,), dtype=torch.int32, device=dev)
-    masked = torch.empty((B, d.A), dtype=torch.float32, device=dev)
+    # one output buffer: the masked logits, then the actions' int32 words
+    out = torch.empty((B * (d.A + 1),), dtype=torch.float32, device=obs.device)
+    masked = out[: B * d.A].view(B, d.A)
+    action = out[B * d.A :].view(torch.int32)
     p = cuda_lib.ptr
     cuda_lib.launch(
         "k3_bank", "hex_bank",
-        p(stacked), d.F, d.H, d.A, d.n_layers, int(d.relu), p(obs), p(legal), p(member),
-        p(bits), seed, p(action), p(masked), B,
+        p(image), d.F, d.H, d.A, d.n_layers, int(d.relu), P1, p(obs), p(legal), p(member),
+        p(use_best), p(bits), seed, p(action), p(masked), B,
     )
     return action, masked
 
 
 def bank_forward_sample(
-    stacked: torch.Tensor,  # (P1, S) members, best last
+    bank: BankOperand,
     d: MlpDims,
     obs_flat: torch.Tensor,
     legal: torch.Tensor,
@@ -259,14 +353,24 @@ def bank_forward_sample(
     bits: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     impl: str = "auto",
+    use_best: Optional[torch.Tensor] = None,
 ):
-    """One pass: each row's member forward + masked sample.
-
+    """One pass: each row's member forward + masked sample, on ``bank``
+    (``bank_operand``, built once per rollout: the kernel reads its image,
+    the twin its stack).  Where ``use_best`` (B,) bool is set, the row's
+    member is the best, P1 - 1.
     Returns ``(action (B,) int32, masked_logits (B, A) float32)``."""
+    P1 = bank.stacked.shape[0]
     if use_kernel(obs_flat, impl):
-        return _bank_cuda(stacked, d, obs_flat, legal, member_idx, bits, generator)
+        if bank.image is None:
+            raise ValueError("the bank kernel reads the bank image: build the operand once per "
+                             "rollout with bank_operand")
+        return _bank_cuda(bank.image, P1, d, obs_flat, legal, member_idx, use_best, bits,
+                          generator)
+    if use_best is not None:
+        member_idx = torch.where(use_best, P1 - 1, member_idx.to(torch.int32))
     bits = _bits_or_draw(bits, generator, legal.shape, obs_flat.device)
-    return bank_forward_sample_twin(stacked, d, obs_flat, legal, member_idx, bits)
+    return bank_forward_sample_twin(bank.stacked, d, obs_flat, legal, member_idx, bits)
 
 
 # ---------------------------------------------------------------------------
@@ -316,11 +420,17 @@ class PolicyOps:
             packed, self.dims, obs_flat, legal, bits, generator, self.impl
         )
 
-    def bank_act(self, stacked, use_best, opp_idx, obs, legal, generator=None, bits=None):
+    def bank_operand(self, bank) -> BankOperand:
+        """The bank pass's operand, built once per rollout: ``stack_bank``
+        with, where the kernel runs, its bank image."""
+        return bank_operand(self.stack_bank(bank), self.dims, self.impl)
+
+    def bank_act(self, bank: BankOperand, use_best, opp_idx, obs, legal, generator=None,
+                 bits=None):
         obs_flat = obs.reshape(obs.shape[0], -1)
-        idx = torch.where(use_best, stacked.shape[0] - 1, opp_idx.to(torch.int32))
         return bank_forward_sample(
-            stacked, self.dims, obs_flat, legal, idx, bits, generator, self.impl
+            bank, self.dims, obs_flat, legal, opp_idx, bits, generator, self.impl,
+            use_best=use_best,
         )
 
 

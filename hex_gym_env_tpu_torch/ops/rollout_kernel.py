@@ -19,6 +19,10 @@ returns the final carry.  ``fused_rollout_twin`` is the plain PyTorch
 version of the same function; ``verify_rollout_trajectory`` replays a
 record through the plain env ops and the model.
 
+With ``bank_bf16`` (``rollout_bank_bf16``) the opponent's towers run on a
+bf16 bank as the JAX kernel's ``bank_bf16`` does (``pk.bank_logits_twin``);
+the agent and the opening-move table stay float32.
+
 Random draws follow the JAX kernel's map exactly (``ops/masked.py``): with
 bits given (the JAX interpret-mode layout: agent, opponent and first-move
 (T, B, A) and reset (T, B, 128), lanes 0-2 = seat, best, slot), the kernel
@@ -135,10 +139,14 @@ def fused_rollout_twin(
     bits,
     eval_mode: bool = False,
     with_margins: bool = False,
+    bank_bf16: bool = False,
+    opp_logits: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch K4.  With ``with_margins`` it also returns the (T, B, 3)
     gaps between the two best scores of the agent, opponent and first-move
-    draws."""
+    draws.  ``bank_bf16`` runs the opponent's reply on the bf16 bank.
+    ``opp_logits``, a float32 (T, B, A) buffer, receives the opponent's bank
+    logits (before the legal mask) at each step."""
     n, F, L = topo.n, topo.num_cells, topo.lanes
     B = state.batch_size
     dev = state.device
@@ -182,7 +190,10 @@ def fused_rollout_twin(
         # 3. opponent reply
         obs2, legal2 = obs_legal()
         idx = torch.where(ub, P1 - 1, oi)
-        masked2 = masked_ops.mask_logits(pk.bank_logits_twin(stacked, d, obs2, idx), legal2)
+        logits2 = pk.bank_logits_twin(stacked, d, obs2, idx, bf16=bank_bf16)
+        if opp_logits is not None:
+            opp_logits[t] = logits2
+        masked2 = masked_ops.mask_logits(logits2, legal2)
         g_o = masked_ops.gumbel(bits[1][t])
         oa = masked_ops.argmax_first(masked2 + g_o)
         win2 = move(_to_world(oa, tm, n), ~done)
@@ -251,6 +262,7 @@ def fused_rollout_twin(
 def _rollout_cuda(
     topo, d, packed_agent, stacked, first_table, state, agent_seat, use_best, opp_idx,
     n_steps, best_prob, per_episode_seat, bits, generator, eval_mode, timers=None,
+    bank_bf16=False, opp_logits=None,
 ) -> FusedRolloutOut:
     B, L, F, A = state.batch_size, topo.lanes, topo.num_cells, d.A
     P1 = stacked.shape[0]
@@ -280,6 +292,8 @@ def _rollout_cuda(
         seed = cuda_lib.philox_seed(generator)
     if timers is not None:
         timers = chk("timers", timers, torch.int64, (B, n_steps, ROLLOUT_MARKS))
+    if opp_logits is not None:
+        opp_logits = chk("opp_logits", opp_logits, torch.float32, (n_steps, B, A))
 
     dev = stones.device
     obs = torch.empty((n_steps, B, F), dtype=torch.int8, device=dev)
@@ -300,7 +314,7 @@ def _rollout_cuda(
                         dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
     cuda_lib.launch(
-        "k4_rollout", "hex_rollout",
+        "k4_rollout_bf16" if bank_bf16 else "k4_rollout", "hex_rollout",
         p(agent), p(bank), p(first), p(image), d.F, d.H, A, d.n_layers, int(d.relu), P1,
         p(stones), p(labels), p(to_move), p(done), p(empty), p(moves), p(seat), p(ub), p(oi),
         *[p(b) for b in bits], seed,
@@ -308,7 +322,9 @@ def _rollout_cuda(
         p(o.stones), p(o.labels), p(o.to_move), p(o.done), p(o.empty), p(o.move_count),
         p(o_seat), p(o_ub), p(o_oi),
         B, topo.n, L, n_steps, float(best_prob), int(per_episode_seat), int(eval_mode),
-        *cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, topo.n, L, B)[:3], p(timers),
+        int(bank_bf16),
+        *cuda_lib.rollout_plan(d.F, d.H, A, d.n_layers, topo.n, L, B, bank_bf16)[:3], p(timers),
+        p(opp_logits),
     )
     return FusedRolloutOut(obs, ints, flts, o, o_seat, o_ub, o_oi)
 
@@ -330,17 +346,23 @@ def fused_rollout(
     generator: Optional[torch.Generator] = None,
     eval_mode: bool = False,
     timers: Optional[torch.Tensor] = None,
+    bank_bf16: bool = False,
+    opp_logits: Optional[torch.Tensor] = None,
 ) -> FusedRolloutOut:
     """Run ``n_steps`` selfplay transitions in one pass; see the module
     docstring.  The kernel for a CUDA state under ``pol.impl`` "auto" or
     "pallas", the twin for a CPU state ("pallas" raises there).  ``timers``,
     for the kernel only, is an int64 (B, n_steps, ``ROLLOUT_MARKS``) buffer
-    that receives its phase clock (``utils/profiling.phase_split``)."""
+    that receives its phase clock (``utils/profiling.phase_split``).
+    ``bank_bf16`` takes the bf16-bank instance (``rollout_bank_bf16``).
+    ``opp_logits``, a float32 (n_steps, B, A) buffer, receives the
+    opponent's bank logits at each step (before the legal mask), from the
+    kernel or the twin: what the check of the bf16 bank compares."""
     if pk.use_kernel(state.stones, pol.impl):
         return _rollout_cuda(
             topo, pol.dims, packed_agent, stacked, first_table, state, agent_seat,
             use_best, opp_idx, n_steps, best_prob, per_episode_seat, bits, generator,
-            eval_mode, timers,
+            eval_mode, timers, bank_bf16, opp_logits,
         )
     if bits is None:
         if generator is None:
@@ -348,7 +370,8 @@ def fused_rollout(
         bits = draw_rollout_bits(generator, n_steps, state.batch_size, pol.dims.A, state.device)
     return fused_rollout_twin(
         topo, pol.dims, packed_agent, stacked, first_table, state, agent_seat, use_best,
-        opp_idx, n_steps, best_prob, per_episode_seat, bits, eval_mode,
+        opp_idx, n_steps, best_prob, per_episode_seat, bits, eval_mode, bank_bf16=bank_bf16,
+        opp_logits=opp_logits,
     )
 
 
@@ -460,12 +483,10 @@ def verify_rollout_trajectory(
 
 def supported(model, cfg) -> bool:
     """The kernel takes plain equal-tower MLPs, empty-board resets (its
-    opening-move table needs them), boards up to 11x11 (cells + 4 edge
-    virtuals in 128 lanes, four per thread of the game's warp) and a
-    float32 bank."""
-    if cfg.board_size**2 + 4 > 128:
-        return False
-    if cfg.sample_board or getattr(cfg, "rollout_bank_bf16", False):
+    opening-move table needs them) and boards up to 11x11 (cells + 4 edge
+    virtuals in 128 lanes, four per thread of the game's warp), with a
+    float32 or a bf16 bank (``rollout_bank_bf16``), as the JAX gate."""
+    if cfg.board_size**2 + 4 > 128 or cfg.sample_board:
         return False
     return pk.supported(model)
 
@@ -494,6 +515,6 @@ def resolve(model, cfg) -> Optional[pk.PolicyOps]:
     if impl == "fused":
         raise ValueError(
             "rollout_impl='fused' requires a plain equal-tower MlpPolicy, "
-            "sample_board=False, a float32 bank and a board of at most 11x11"
+            "sample_board=False and a board of at most 11x11"
         )
     return None

@@ -205,7 +205,7 @@ class Evaluator:
             topo, pol, pol.pack_agent(params), stacked, unused_table, state, seat,
             torch.zeros((E,), dtype=torch.bool, device=dev), serve.to(torch.int32),
             topo.num_cells // 2 + 2, cfg.best_prob, False,
-            bits=bits, generator=generator, eval_mode=True,
+            bits=bits, generator=generator, eval_mode=True, bank_bf16=cfg.rollout_bank_bf16,
         )
         return out.flts[..., rollout_kernel.F_REWARD].sum(dim=0)
 

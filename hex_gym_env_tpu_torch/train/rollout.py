@@ -120,14 +120,16 @@ class SelfplayRunner:
 
     def opponent_move(
         self, bank: OpponentBank, use_best, opp_idx, state: HexState,
-        generator: torch.Generator, active: torch.Tensor, stacked=None,
+        generator: torch.Generator, active: torch.Tensor, bank_op=None,
     ):
         """The opponent acts stochastically with the action mask, like
-        ``OpponentPolicy.choose_action`` (``SelfplayWrapper.py:30-32``)."""
-        if self.pol is not None and stacked is not None:
+        ``OpponentPolicy.choose_action`` (``SelfplayWrapper.py:30-32``).
+        ``bank_op`` is the bank pass's operand (``PolicyOps.bank_operand``),
+        built once per rollout."""
+        if self.pol is not None and bank_op is not None:
             obs = hex_env.observe(self.topo, state)
             legal = hex_env.legal_mask(self.topo, state)
-            action, _ = self.pol.bank_act(stacked, use_best, opp_idx, obs, legal, generator)
+            action, _ = self.pol.bank_act(bank_op, use_best, opp_idx, obs, legal, generator)
         else:
             logits, legal = self.opponent_logits(bank, use_best, opp_idx, state)
             bits = masked.draw_bits(generator, legal.shape, self.device)
@@ -145,7 +147,7 @@ class SelfplayRunner:
 
     def reset_finished(
         self, carry: RolloutCarry, bank: OpponentBank, generator: torch.Generator,
-        first_logits=None, stacked=None,
+        first_logits=None, bank_op=None,
     ) -> RolloutCarry:
         """Auto-reset done games + seat/opponent redraw + opponent first move.
 
@@ -173,7 +175,7 @@ class SelfplayRunner:
         active = m & (seat == 1)
         if first_logits is None:
             st, _ = self.opponent_move(
-                bank, use_best, opp_idx, st, generator, active=active, stacked=stacked)
+                bank, use_best, opp_idx, st, generator, active=active, bank_op=bank_op)
             return RolloutCarry(env=st, agent_seat=seat, use_best=use_best, opp_idx=opp_idx)
         # every cell of the empty board is legal
         members, best_l = first_logits
@@ -193,9 +195,9 @@ class SelfplayRunner:
         use_best, opp_idx = sample_opponents(
             generator, bank.size, cfg.n_envs, cfg.best_prob, self.device
         )
-        stacked = self.pol.stack_bank(bank) if self.pol is not None else None
+        bank_op = self.pol.bank_operand(bank) if self.pol is not None else None
         st, _ = self.opponent_move(
-            bank, use_best, opp_idx, st, generator, active=seat == 1, stacked=stacked
+            bank, use_best, opp_idx, st, generator, active=seat == 1, bank_op=bank_op
         )
         return RolloutCarry(env=st, agent_seat=seat, use_best=use_best, opp_idx=opp_idx)
 
@@ -215,7 +217,7 @@ class SelfplayRunner:
             rollout_kernel.first_move_table(stacked, pol.dims), carry.env,
             carry.agent_seat, carry.use_best, carry.opp_idx, n_steps,
             self.cfg.best_prob, self.cfg.seat_mode == "per_episode",
-            bits=bits, generator=generator,
+            bits=bits, generator=generator, bank_bf16=self.cfg.rollout_bank_bf16,
         )
         n = self.topo.n
         ints, flts = out.ints, out.flts
@@ -254,7 +256,7 @@ class SelfplayRunner:
         first_logits = None if self.cfg.sample_board else self.first_move_logits(bank)
         pol = self.pol
         packed_agent = pol.pack_agent(params) if pol is not None else None
-        stacked_bank = pol.stack_bank(bank) if pol is not None else None
+        bank_op = pol.bank_operand(bank) if pol is not None else None
 
         c = carry
         steps = []
@@ -274,14 +276,14 @@ class SelfplayRunner:
 
             st2, rew2 = self.opponent_move(
                 bank, c.use_best, c.opp_idx, st1, generator, active=~st1.done,
-                stacked=stacked_bank,
+                bank_op=bank_op,
             )
             r_agent = r_agent + rew2.gather(1, seat_col)[:, 0]
             done = st2.done
 
             c = self.reset_finished(
                 RolloutCarry(st2, c.agent_seat, c.use_best, c.opp_idx), bank,
-                generator, first_logits, stacked=stacked_bank,
+                generator, first_logits, bank_op=bank_op,
             )
             steps.append(Transition(obs, legal, action, log_prob, value, r_agent, done))
 

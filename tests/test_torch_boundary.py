@@ -107,7 +107,7 @@ def test_pinned_kernels_refuse_cpu_tensors():
         pol.agent_act(pol.pack_agent(params), obs, legal, g)
     bank = init_bank(params, 2)
     with pytest.raises(ValueError, match="pallas"):
-        pol.bank_act(pol.stack_bank(bank), torch.zeros(2, dtype=torch.bool),
+        pol.bank_act(pol.bank_operand(bank), torch.zeros(2, dtype=torch.bool),
                      torch.zeros(2, dtype=torch.int32), obs, legal, g)
 
     cfg = SelfplayConfig(board_size=3, n_envs=2, buffer_size=2, policy_impl="pallas",

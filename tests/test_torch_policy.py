@@ -173,9 +173,12 @@ def test_agent_twin_matches_pallas_agent_kernel(family):
     np.testing.assert_allclose(got.masked_logits.numpy(), np.asarray(res.masked_logits), atol=ATOL)
 
 
-@pytest.mark.parametrize("family", ["MLP-default", "MLP-deep"])
-def test_bank_twin_matches_pallas_bank_kernel(family):
-    n, B, P = 5, 32, 4
+@pytest.mark.parametrize("n,family", [(5, "MLP-default"), (5, "MLP-deep"), (13, "MLP-default")])
+def test_bank_twin_matches_pallas_bank_kernel(n, family):
+    """13x13 (169 actions, 256 lanes) is a board the scan path takes where
+    the fused rollout refuses; the JAX bank kernel runs it in interpret
+    mode."""
+    B, P = 32, 4
     model = jax_make_policy(family, n * n)
     template = model.init(jax.random.key(0), jnp.zeros((1, n, n), jnp.float32))["params"]
     bank = jax_init_bank(template, P)
@@ -205,7 +208,8 @@ def test_bank_twin_matches_pallas_bank_kernel(family):
     pol = policy_kernel.PolicyOps(make_policy(family, n * n))
     stacked = pol.stack_bank(tbank)
     assert stacked.shape[0] == P + 1
-    ta, tmasked = pol.bank_act(stacked, torch.from_numpy(use_best), torch.from_numpy(opp_idx),
+    ta, tmasked = pol.bank_act(pol.bank_operand(tbank), torch.from_numpy(use_best),
+                               torch.from_numpy(opp_idx),
                                torch.from_numpy(obs), torch.from_numpy(legal), bits=bits)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_allclose(tmasked.numpy(), np.asarray(jmasked), atol=ATOL)
@@ -220,3 +224,110 @@ def test_policy_gate():
     assert policy_kernel.resolve_policy_ops(mlp, SelfplayConfig(policy_impl="pallas")).impl == "pallas"
     with pytest.raises(ValueError):
         policy_kernel.resolve_policy_ops(mlp, SelfplayConfig(policy_impl="LAX"))
+
+
+def _np_bf16(x):
+    """float32 -> the nearest bfloat16 (ties to even), as float32: the bit
+    rule of XLA's and torch's casts, written out."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+# bf16 logits of the twin against numpy: the same bf16 values summed in
+# float32 in another order agree to 1e-5.  A hidden unit whose tanh lands one
+# float32 ulp apart in the two libraries can round to neighbouring bf16
+# values (one bf16 ulp, 2^-8 relative, of a unit below 1), which moves its
+# row's logits by about that ulp times the weights after it: such entries
+# must stay rare (1%), and none may move by more than one bf16 ulp (2^-8) of
+# the largest logit, the bound chip_smoke.py holds the card's K4 to.
+BF16_REL = 2.0**-8
+
+
+@pytest.mark.parametrize("family", ["MLP-default", "MLP-deep"])
+def test_bf16_bank_logits_match_numpy_cast_rule(family):
+    """``bank_logits_twin(..., bf16=True)`` is JAX's ``bank_bf16`` rule
+    (ops/pallas_rollout.py): members' weights and biases cast to bf16, each
+    dot's left-hand side cast to bf16, float32 sums, the bias after the dot;
+    the first-move table stays the float32 forward."""
+    n, B, P1 = 5, 64, 5
+    rng = np.random.default_rng(3)
+    model = make_policy(family, n * n)
+    pol = policy_kernel.PolicyOps(model)
+    d = pol.dims
+    stacked = rng.normal(size=(P1, policy_kernel.tower_size(d, d.A))).astype(np.float32) * 0.3
+    obs = rng.integers(-1, 2, size=(B, d.F)).astype(np.int8)
+    idx = rng.integers(0, P1, size=B).astype(np.int32)
+
+    act = np.tanh if ACT[family] == "tanh" else (lambda v: np.maximum(v, np.float32(0)))
+    views = policy_kernel.tower_views(torch.from_numpy(_np_bf16(stacked)), d, d.A)
+    want = np.empty((B, d.A), np.float32)
+    for r in range(B):
+        h = obs[r].astype(np.float32)
+        for li, (W, b) in enumerate(views):
+            z = _np_bf16(h) @ W[idx[r]].numpy() + b[idx[r]].numpy()
+            h = act(z).astype(np.float32) if li < len(views) - 1 else z
+        want[r] = h
+    t_stacked, t_obs, t_idx = (torch.from_numpy(x) for x in (stacked, obs, idx))
+    got = policy_kernel.bank_logits_twin(t_stacked, d, t_obs, t_idx, bf16=True).numpy()
+    diff = np.abs(got - want)
+    assert diff.max() <= BF16_REL * np.abs(want).max() and np.mean(diff > ATOL) <= 0.01
+    f32 = policy_kernel.bank_logits_twin(t_stacked, d, t_obs, t_idx).numpy()
+    assert np.abs(f32 - want).max() > 10 * ATOL  # the mode does round
+
+    from hex_gym_env_tpu_torch.ops import rollout_kernel
+
+    zeros = torch.zeros((P1, d.F))
+    table = rollout_kernel.first_move_table(t_stacked, d)
+    assert torch.equal(table, policy_kernel.bank_logits_twin(t_stacked, d, zeros, torch.arange(P1)))
+
+
+@pytest.mark.parametrize("n,family", [(7, "MLP-default"), (13, "MLP-default"), (5, "MLP-wide-deep")])
+def test_bank_image_layout(n, family):
+    """K3's bank image (the layout of csrc/hex_common.cuh team_mlp_towers):
+    per layer, n_out rows of n_in weights at a stride of a multiple of 4
+    floats whose quarter is odd, pads zero, then the biases padded to 4."""
+    pk = policy_kernel
+    g = torch.Generator().manual_seed(0)
+    pol = pk.PolicyOps(make_policy(family, n * n, generator=g))
+    d, P1 = pol.dims, 3
+    stacked = torch.randn((P1, pk.tower_size(d, d.A)), generator=g)
+    image = pk.bank_image_twin(stacked, d)
+    assert image.shape == (P1, pk.ttower_size(d, d.A)) and image.dtype == torch.float32
+    views = pk.tower_views(stacked, d, d.A)
+    off = 0
+    for W, b in views:
+        n_in, n_out = W.shape[-2:]
+        S = pk.row_stride(n_in)
+        assert S % 4 == 0 and (S // 4) % 2 == 1 and n_in <= S < n_in + 8
+        rows = image[:, off : off + n_out * S].reshape(P1, n_out, S)
+        assert torch.equal(rows[:, :, :n_in], W.transpose(1, 2))
+        assert not rows[:, :, n_in:].any()
+        off += n_out * S
+        bias = image[:, off : off + pk.round4(n_out)]
+        assert torch.equal(bias[:, :n_out], b) and not bias[:, n_out:].any()
+        off += pk.round4(n_out)
+    assert off == image.shape[1] == sum(pk.tlayer_size(*W.shape[-2:]) for W, _ in views)
+    assert pk.bank_operand(stacked, d).image is None  # on the CPU the twin reads stacked
+
+
+def test_bank_pass_use_best_and_image_rule():
+    """``use_best`` picks the best (P1 - 1) as the twin's ``torch.where``
+    did; the kernel path refuses to run without the bank image."""
+    pk = policy_kernel
+    n, B, P1 = 4, 16, 4
+    g = torch.Generator().manual_seed(2)
+    pol = pk.PolicyOps(make_policy("MLP-default", n * n, generator=g))
+    d = pol.dims
+    stacked = torch.randn((P1, pk.tower_size(d, d.A)), generator=g) * 0.3
+    obs = torch.randint(-1, 2, (B, d.F), generator=g).to(torch.int8)
+    legal = obs == 0
+    use_best = torch.arange(B) % 3 == 0
+    opp_idx = torch.arange(B, dtype=torch.int32) % (P1 - 1)
+    bits = masked.draw_bits(g, (B, d.A), "cpu")
+    a, m = pol.bank_act(pk.bank_operand(stacked, d), use_best, opp_idx, obs, legal, bits=bits)
+    member = torch.where(use_best, P1 - 1, opp_idx)
+    a2, m2 = pk.bank_forward_sample(pk.BankOperand(stacked), d, obs, legal, member, bits)
+    assert torch.equal(a, a2) and torch.equal(m, m2)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.bank_image_cuda(stacked, d)

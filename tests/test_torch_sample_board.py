@@ -242,7 +242,7 @@ def test_reset_rows_get_sampled_boards_others_untouched():
                         policy_impl="lax")):
         runner = SelfplayRunner(tt, model, cfg, device="cpu")
         out = runner.reset_finished(carry, bank, g, None,
-                                    stacked=runner.pol.stack_bank(bank) if runner.pol else None)
+                                    bank_op=runner.pol.bank_operand(bank) if runner.pol else None)
         for name in FIELDS:  # rows that were not over are untouched
             assert torch.equal(getattr(out.env, name)[~done], getattr(env, name)[~done]), name
         fresh = out.env.stones[done]

@@ -15,6 +15,9 @@
    board, the same at 13x13 and 3x3, and on its own Philox streams over 512
    steps: the invariants of the JAX package's test of the kernel, and mean
    games per env within 3 standard errors of the twin's on generator bits;
+   the agent pass K2 on its agent image (built once per rollout, held
+   exactly against its twin) at 7x7 with 256 and 30 games, at 13x13 and at
+   9x9 on MLP-wide-deep, and on its own Philox streams (every action legal);
    the bank pass K3 on its bank image (built once per rollout, held exactly
    against its twin) at 7x7 with 256 and 30 games and at 13x13; the
    whole-rollout K4 with its opponent's logits held against the twin's too,
@@ -28,7 +31,8 @@
    ``7x7_MLP-default_lr-0.0003`` preset three times through the
    whole-rollout kernel, replays the first rollout's record through the
    plain env ops, and prints transitions/s;
-4. drives the scan path (env-step, agent and bank kernels) for 8 steps;
+4. drives the scan path (env-step, agent and bank kernels) for 8 steps,
+   the agent image built once and the bank image twice (asserted);
 5. holds the learner's kernels against their twins on the main path's data:
    GAE (K5) exactly on a preset rollout, the PPO sweep (K6) for one grad
    step and for the preset's whole 80-step sweep from non-zero Adam moments,
@@ -69,8 +73,8 @@ it gives the split before a change beside the split after it.
 only builds the kernels of the port found in the directory ROOT and prints,
 on lines tagged ``[env LABEL]``, the call and device times of K7 (its
 Philox streams at the benchmark's shape), K1 (7x7, 256 games), K5 (the
-preset's T = 128, B = 256, on the rollout record's strided lanes) and K3
-(7x7, 256 games): with ROOT an unpacked older tree, the same measurement of
+preset's T = 128, B = 256, on the rollout record's strided lanes), K3
+and K2 (7x7, 256 games): with ROOT an unpacked older tree, the same measurement of
 the kernels before a change.
 """
 
@@ -106,6 +110,11 @@ K5_SHAPES = ((128, 256), (128, 30), (2048, 8), (128, 4096))
 # K3 against its twin at these (n, games): the scan path at the preset, the
 # eval batch, and 13x13 (256 lanes), a board only the scan path takes
 K3_SHAPES = ((7, 256), (7, 30), (13, 256))
+# K2 against its twin at these (n, tower, games): the scan path at the
+# preset, the eval batch, 13x13 (256 lanes), a board only the scan path
+# takes, and the grid's widest tower (H 128, 4 layers, ReLU)
+K2_SHAPES = ((7, "MLP-default", 256), (7, "MLP-default", 30), (13, "MLP-default", 256),
+             (9, "MLP-wide-deep", 256))
 
 N, B, H, POOL, T = 7, 256, 64, 30, 128
 # K7 at the env-throughput benchmark's shape (hex_gym_env_tpu_torch/bench.py);
@@ -127,7 +136,8 @@ def k7_ops_per_game_step(F: int) -> int:
 K7_OLD_OPS_PER_LANE_STEP = 19  # the earlier count: 19 operations on each of the L lanes, padding too
 # the kernels' names in torch.profiler's device events, for their device time
 KERNEL_NAMES = {
-    "k1_step": ("step_kernel",), "k2_agent": ("agent_kernel",), "k3_bank": ("bank_kernel",),
+    "k1_step": ("step_kernel",), "k2_agent": ("agent_kernel",),
+    "k2_agent_image": ("tower_image_kernel",), "k3_bank": ("bank_kernel",),
     "k3_bank_image": ("tower_image_kernel",),
     "k4_rollout": ("tower_image_kernel", "rollout_kernel"),
     "k4_rollout_bf16": ("tower_image_kernel", "rollout_kernel"), "k5_gae": ("gae_kernel",),
@@ -347,6 +357,90 @@ def k3_call(c: dict, pol=None, generator=None):
                                 generator, bits)
 
 
+def k2_case(n: int, family: str, b: int, g) -> dict:
+    """K2's inputs on the card at n x n with b games, from the CPU generator
+    ``g``: a random ``family`` agent with its action head widened 100x (the
+    orthogonal init's gain of 0.01 gives near-equal logits, which no check
+    bites on), positions after random legal plies of the plain env (some
+    games over), and injected bits.  ``op`` and ``twin_op`` are the kernel's
+    and the twin's agent operands: ``pk.agent_operand`` where the port has
+    it, else (an older tree, whose K2 reads the packed agent) the packing."""
+    import torch
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.core.topology import get_topology
+    from hex_gym_env_tpu_torch.models import make_policy
+    from hex_gym_env_tpu_torch.ops import masked
+    from hex_gym_env_tpu_torch.ops import policy_kernel as pk
+
+    dev = torch.device("cuda")
+    topo = get_topology(n)
+    A = topo.num_cells
+    model = make_policy(family, A, generator=g)
+    params = {k: v.detach().to(dev) * (100.0 if k.startswith("action_head") else 1.0)
+              for k, v in model.state_dict().items()}
+    pol, twin = pk.PolicyOps(model, "pallas"), pk.PolicyOps(model, "lax")
+    packed = pol.pack_agent(params)
+    state = hex_env.initial_state(topo, b, dev)
+    for _ in range(24 if n <= 7 else 60):
+        legal = hex_env.legal_mask(topo, state)
+        a = masked.sample(masked.draw_bits(g, (b, A), dev), torch.zeros((b, A), device=dev), legal)
+        state, _ = hex_env.step(topo, state, a)
+    operand = hasattr(pk, "agent_operand")
+    return dict(
+        topo=topo, pol=pol, twin=twin, packed=packed,
+        op=pk.agent_operand(packed, pol.dims, "pallas") if operand else packed,
+        twin_op=pk.AgentOperand(packed) if operand else packed,
+        obs=hex_env.observe(topo, state), legal=hex_env.legal_mask(topo, state),
+        bits=masked.draw_bits(g, (b, A), dev), done=int(state.done.sum()))
+
+
+def k2_call(c: dict, pol=None, generator=None):
+    """A closure of one K2 pass on case ``c`` (its injected bits, or the
+    Philox streams seeded from ``generator``) by ``pol`` (the kernel's by
+    default; the twin's with ``c["twin"]``)."""
+    op = c["op"] if pol is None else c["twin_op"]
+    pol = c["pol"] if pol is None else pol
+    bits = None if generator is not None else c["bits"]
+    return lambda: pol.agent_act(op, c["obs"], c["legal"], generator, bits)
+
+
+def k2_check(n: int, family: str, b: int, g, gen_k):
+    """K2 on ``k2_case(n, family, b, g)`` against its twin: the agent image
+    exactly the twin's (one launch), every action equal but at near ties,
+    masked logits, values and log-probs within TOL; on its Philox streams
+    (seeded from ``gen_k``) every action legal.  Returns (max error,
+    near-tie rows, the case)."""
+    import torch
+    from hex_gym_env_tpu_torch.ops import cuda_lib, masked
+    from hex_gym_env_tpu_torch.ops import policy_kernel as pk
+
+    c = k2_case(n, family, b, g)
+    d = c["pol"].dims
+    tag = f"K2 {n}x{n} {family} B {b}"
+    cuda_lib.reset_launches()
+    image = pk.agent_operand(c["packed"], d, "pallas").image
+    if cuda_lib.launches["k2_agent_image"] != 1 or not torch.equal(
+            image, pk.agent_image_twin(c["packed"], d)):
+        fail(f"{tag}: the agent image differs from its twin")
+    kr = k2_call(c)()
+    tr = k2_call(c, c["twin"])()
+    torch.cuda.synchronize()
+    top2 = torch.topk(tr.masked_logits + masked.gumbel(c["bits"]), 2, dim=-1).values
+    ties = check_actions(tag, kr.action, tr.action, top2[:, 0] - top2[:, 1])
+    ok = kr.action == tr.action
+    err = max(max_err(kr.masked_logits, tr.masked_logits), max_err(kr.value, tr.value),
+              max_err(kr.log_prob[ok], tr.log_prob[ok]))
+    if err > TOL:
+        fail(f"{tag}: floats differ by {err}")
+    kp = k2_call(c, generator=gen_k)()
+    picked = torch.take_along_dim(c["legal"], kp.action.long()[:, None], -1)
+    if not bool(picked.all()) or not bool(torch.isfinite(kp.log_prob).all()):
+        fail(f"{tag} (Philox): an illegal action or a non-finite log-prob")
+    print(f"[K2 agent] {tag}: image exact, max err {err:.3g}, near-tie rows {ties}, "
+          f"{c['done']} games over; Philox actions legal")
+    return err, ties, c
+
+
 def k5_case(T: int, B: int, g):
     """K5's inputs on the card, as the rollout record gives them: rewards
     and values strided lanes of a (T, B, 8) float32 record, rewards in
@@ -364,8 +458,9 @@ def env_kernel_times(label: str) -> dict:
     """Call time (CUDA events around the wrapper's calls) and device time
     (``device_ms``) of K7 on its Philox streams at the benchmark's shape,
     seeded from a CPU generator, of K1 at 7x7, B = 256, of K5 at the
-    preset's shape and of K3 at 7x7, B = 256 (Philox), through the package
-    first on ``sys.path``; prints them on lines tagged ``[env LABEL]``."""
+    preset's shape, and of K3 and K2 at 7x7, B = 256 (Philox), through the
+    package first on ``sys.path``; prints them on lines tagged ``[env
+    LABEL]``."""
     import torch
     from hex_gym_env_tpu_torch.core import env as hex_env
     from hex_gym_env_tpu_torch.core.topology import get_topology
@@ -390,15 +485,19 @@ def env_kernel_times(label: str) -> dict:
 
     k3 = k3_call(k3_case(N, B, torch.Generator().manual_seed(43)),
                  generator=torch.Generator().manual_seed(44))
+    k2 = k2_call(k2_case(N, "MLP-default", B, torch.Generator().manual_seed(45)),
+                 generator=torch.Generator().manual_seed(46))
     out = {"k7": (cuda_ms(k7, 10), device_ms(k7, KERNEL_NAMES["k7_random_rollout"], 10)),
            "k1": (cuda_ms(k1, 200), device_ms(k1, KERNEL_NAMES["k1_step"], 200)),
            "k5": (cuda_ms(k5, 200), device_ms(k5, KERNEL_NAMES["k5_gae"], 200)),
-           "k3": (cuda_ms(k3, 200), device_ms(k3, KERNEL_NAMES["k3_bank"], 200))}
+           "k3": (cuda_ms(k3, 200), device_ms(k3, KERNEL_NAMES["k3_bank"], 200)),
+           "k2": (cuda_ms(k2, 200), device_ms(k2, KERNEL_NAMES["k2_agent"], 200))}
     print(f"[env {label}] K7 Philox {K7_T} steps x {K7_B} games: call {out['k7'][0]:.4f} ms, "
           f"device {out['k7'][1]:.4f} ms; K1 7x7 B {B}: call {out['k1'][0]:.5f} ms, "
           f"device {out['k1'][1]:.5f} ms")
     print(f"[env {label}] K5 T {T} B {B}: call {out['k5'][0]:.5f} ms, device {out['k5'][1]:.5f} ms; "
           f"K3 7x7 B {B}: call {out['k3'][0]:.5f} ms, device {out['k3'][1]:.5f} ms")
+    print(f"[env {label}] K2 7x7 B {B}: call {out['k2'][0]:.5f} ms, device {out['k2'][1]:.5f} ms")
     from hex_gym_env_tpu_torch.ops import cuda_lib
 
     if hasattr(cuda_lib, "env_plan"):  # trees whose K1 and K7 run a warp per game
@@ -661,8 +760,6 @@ def main() -> int:
         legal = hex_env.legal_mask(topo, state)
         a = masked.sample(masked.draw_bits(g, (B, A), dev), torch.zeros((B, A), device=dev), legal)
         state, _ = hex_env.step(topo, state, a)
-    obs = hex_env.observe(topo, state).reshape(B, F)
-    legal = hex_env.legal_mask(topo, state)
     print(f"[inputs] {int(state.done.sum())} of {B} games over")
 
     kernels = {}
@@ -719,33 +816,40 @@ def main() -> int:
         ("carve_outputs", lambda: step_kernel.carve_outputs(B, L, dev, 2 * B)),
         ("bare C entry", lambda: hex_step(*c_args)))))
 
-    # ---- 2b. K2 agent pass -----------------------------------------------------
-    bits = masked.draw_bits(g, (B, A), dev)
-    kr = pol.agent_act(packed, obs, legal, bits=bits)
-    tr = twin.agent_act(packed, obs, legal, bits=bits)
-    torch.cuda.synchronize()
-    scores = tr.masked_logits + masked.gumbel(bits)
-    top2 = torch.topk(scores, 2, dim=-1).values
-    ties = check_actions("K2", kr.action, tr.action, top2[:, 0] - top2[:, 1])
-    ok = kr.action == tr.action
-    err = max(
-        float((kr.masked_logits - tr.masked_logits).abs().max()),
-        float((kr.value - tr.value).abs().max()),
-        float((kr.log_prob - tr.log_prob)[ok].abs().max()),
-    )
-    if err > TOL:
-        fail(f"K2 floats differ by {err}")
+    # ---- 2b. K2 agent pass on its agent image -----------------------------------------
+    k2_err, k2_ties, k2_cases = 0.0, 0, {}
+    g2 = torch.Generator().manual_seed(22)
     gen_k = torch.Generator().manual_seed(1)
-    k_ms = cuda_ms(lambda: pol.agent_act(packed, obs, legal, gen_k), 200)
-    k_dev = device_ms(lambda: pol.agent_act(packed, obs, legal, gen_k), KERNEL_NAMES["k2_agent"], 200)
-    p_ms = cuda_ms(lambda: twin.agent_act(packed, obs, legal, bits=bits), 50)
+    for n2, fam2, b2 in K2_SHAPES:
+        err, ties, c2 = k2_check(n2, fam2, b2, g2, gen_k)
+        k2_err, k2_ties, k2_cases[(n2, fam2, b2)] = max(k2_err, err), k2_ties + ties, c2
+    c2 = k2_cases[(N, cfg.policy, B)]
+    k2_k = k2_call(c2, generator=gen_k)
+    k_ms = cuda_ms(k2_k, 200)
+    k_dev = device_ms(k2_k, KERNEL_NAMES["k2_agent"], 200)
+    p_ms = cuda_ms(k2_call(c2, c2["twin"]), 50)
+    image_dev = device_ms(lambda: pk.agent_operand(c2["packed"], d, "pallas"),
+                          KERNEL_NAMES["k2_agent_image"], 50)
+    # the bound: the function's own work, the packed float32 agent as its
+    # input (the image is the kernel's layout of it)
     flops = 2 * B * (pk.tower_size(d, A) + pk.tower_size(d, 1) - (2 * d.H * d.n_layers + A + 1))
-    n_bytes = 4 * packed.numel() + B * F + B * A + B * 12 + B * A * 4
+    n_bytes = 4 * c2["packed"].numel() + B * F + B * A + B * 12 + B * A * 4
     bnd, by = bound_ms(n_bytes, flops)
-    kernels["k2_agent"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=err,
-                               bound_ms=bnd, bound_by=by)
-    print(f"[K2 agent] max err {err:.3g}, near-tie rows {ties}; call {k_ms:.4f} ms, device "
-          f"{k_dev:.5f} ms, twin {p_ms:.4f} ms")
+    kernels["k2_agent"] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, max_abs_err=k2_err,
+                               bound_ms=bnd, bound_by=by, image_device_ms=image_dev)
+    print(f"[K2 agent] max err {k2_err:.3g}, near-tie rows {k2_ties}; 7x7 B {B}: call {k_ms:.4f} ms, "
+          f"device {k_dev:.5f} ms, twin {p_ms:.4f} ms; the agent image, once per rollout: device "
+          f"{image_dev:.5f} ms")
+    # where the call's host time goes: the whole wrapper and the bare C entry
+    # on the same arguments and output buffer
+    out2 = torch.empty((B * (A + 3),), dtype=torch.float32, device=dev)
+    c_args = [cuda_lib.ptr(c2["op"].image), d.F, d.H, A, d.n_layers, int(d.relu),
+              cuda_lib.ptr(c2["obs"]), cuda_lib.ptr(c2["legal"]), None, 5,
+              *(out2.data_ptr() + 4 * B * k for k in (0, A, A + 1, A + 2)), B,
+              torch.cuda.current_stream().cuda_stream]
+    hex_agent = cuda_lib.lib().hex_agent
+    print("[K2 agent] host us per call: " + ", ".join(f"{name} {host_us(fn, 2000):.2f}" for name, fn in (
+        ("agent_act", k2_k), ("bare C entry", lambda: hex_agent(*c_args)))))
 
     # ---- 2c. K3 bank pass on its bank image ----------------------------------------
     k3_err, k3_ties, k3_cases = 0.0, 0, {}
@@ -1040,6 +1144,8 @@ def main() -> int:
             fail(f"the scan path never launched {name}")
     if scan_counts["k3_bank_image"] != 2:  # init_carry's bank, then the rollout's
         fail(f"the scan path built the bank image {scan_counts['k3_bank_image']} times, not 2")
+    if scan_counts["k2_agent_image"] != 1:  # once per rollout
+        fail(f"the scan path built the agent image {scan_counts['k2_agent_image']} times, not 1")
     picked = torch.take_along_dim(trs.legal, trs.action.long()[..., None], -1)
     if not bool(picked.all()) or not bool(torch.isfinite(lvs).all()):
         fail("the scan path produced illegal actions or non-finite values")
@@ -1383,8 +1489,8 @@ def main() -> int:
         sb_times.append(time.perf_counter() - t0)
         sb_counts.append(dict(cuda_lib.launches))
     want_train = dict.fromkeys(cuda_lib.KERNELS, 0)
-    want_train.update(k1_step=3 * sb_T, k2_agent=sb_T, k3_bank=2 * sb_T, k3_bank_image=1, k5_gae=1,
-                      k6_ppo=1)
+    want_train.update(k1_step=3 * sb_T, k2_agent=sb_T, k2_agent_image=1, k3_bank=2 * sb_T,
+                      k3_bank_image=1, k5_gae=1, k6_ppo=1)
     want_eval = dict.fromkeys(cuda_lib.KERNELS, 0)
     want_eval.update(k1_step=1 + 2 * (F // 2 + 2))
     if sb_counts != [want_train, want_eval]:

@@ -3,17 +3,15 @@
 // decoding, the flat-label union with its win test, the MLP towers, and the
 // masked Gumbel-max sample with its log-softmax.
 //
-// Two families.  The block-level functions (K2, and K6's reductions):
-// one CTA holds one game; functions that take shared-memory arrays are
-// called by every thread of the CTA with the same per-game scalars, so the
-// scalars they return are the same on every thread and the control flow
-// around their __syncthreads() stays uniform.  The warp-level functions
-// (warp_*: K1, K3, K4, K7): one warp plays one game, lane l owns entries l,
-// l + 32, ... of any length; they
-// synchronise with __syncwarp() and shuffles only, so the other games of a
-// CTA never wait for this one; every lane gets the same scalars back.  The
-// game's team of warps shares its forward passes (team_mlp_towers) behind
-// the game's own named barrier.
+// Two families.  The block reduction (block_sum, K6): called by every thread
+// of the CTA with its own value, it returns the same sum on every thread and
+// ends in __syncthreads(), so the control flow around it stays uniform.  The
+// warp-level functions (warp_*: K1-K4, K7): one warp plays one game, lane l
+// owns entries l, l + 32, ... of any length; they synchronise with
+// __syncwarp() and shuffles only, so the other games of a CTA never wait for
+// this one; every lane gets the same scalars back.  The game's team of warps
+// shares its forward passes (team_mlp_towers) behind the game's own named
+// barrier.
 #pragma once
 
 #include <cfloat>
@@ -68,7 +66,7 @@ struct Bits {
 };
 
 // ---------------------------------------------------------------------------
-// Block reductions (blockDim.x a multiple of 32, at most 1024)
+// Block reduction (blockDim.x a multiple of 32, at most 1024)
 // ---------------------------------------------------------------------------
 
 struct Scratch {
@@ -82,43 +80,6 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-__device__ __forceinline__ int block_argmax(float v, int i, Scratch& s) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(kFullMask, v, o);
-    const int oi = __shfl_xor_sync(kFullMask, i, o);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s.v[warp] = v;
-    s.i[warp] = i;
-  }
-  __syncthreads();
-  float bv = s.v[0];
-  int bi = s.i[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
-    if (better(s.v[w], s.i[w], bv, bi)) {
-      bv = s.v[w];
-      bi = s.i[w];
-    }
-  }
-  __syncthreads();
-  return bi;
-}
-
-__device__ __forceinline__ float block_max(float v, Scratch& s) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
-  if ((threadIdx.x & 31) == 0) s.v[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = s.v[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fmaxf(r, s.v[w]);
-  __syncthreads();
-  return r;
-}
-
 __device__ __forceinline__ float block_sum(float v, Scratch& s) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
   if ((threadIdx.x & 31) == 0) s.v[threadIdx.x >> 5] = v;
@@ -130,12 +91,13 @@ __device__ __forceinline__ float block_sum(float v, Scratch& s) {
 }
 
 // ---------------------------------------------------------------------------
-// MLP towers.  A tower's weights are one flat float32 run, kernels (in, out)
-// row-major so that neighbouring threads (neighbouring outputs) read
-// neighbouring words:
+// MLP towers.  A packed tower is one flat float32 run, kernels (in, out)
+// row-major:
 //   [W0 (F,H), b0 (H), {Wl (H,H), bl (H)} x (n_layers-1), Wout (H,out), bout (out)]
 // The agent is its pi tower (out = A) followed by its vf tower (out = 1); a
 // bank member is one pi tower.  See ops/policy_kernel.py for the packing.
+// The forward passes read a tower as its image (transposed and padded, the
+// layout of team_mlp_towers below), built by tower_image_kernel.
 // ---------------------------------------------------------------------------
 
 struct Mlp {
@@ -154,85 +116,6 @@ __device__ __forceinline__ float activate(float v, int relu) {
 // bf16 bank's weights and its dots' left-hand sides (rollout_bank_bf16)
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// dot(x[0:in], W[:, j]) + b[j] in the order k = 0, 1, ...
-__device__ __forceinline__ float dense_unit(const float* W, const float* b, const float* x,
-                                            int in, int out, int j) {
-  float acc = 0.0f;
-  for (int k = 0; k < in; ++k) acc = fmaf(x[k], W[k * out + j], acc);
-  return acc + b[j];
-}
-
-// Runs tower t0 (out0 outputs) and, when t1 is not null, tower t1 (out1
-// outputs) side by side on input x (F floats).  h0/h1 are 2H-float scratch
-// buffers; y receives out0 (+ out1) outputs.  Weights may lie in shared or
-// global memory (generic pointers).  Ends with __syncthreads().
-__device__ inline void mlp_towers(const Mlp& m, const float* t0, int out0, const float* t1,
-                                  int out1, const float* x, float* h0, float* h1, float* y) {
-  const int ntow = t1 != nullptr ? 2 : 1;
-  const int H = m.H;
-  const float* hin = x;
-  float* hout = h0;
-  int in = m.F;
-  int woff = 0;
-  for (int l = 0; l < m.n_layers; ++l) {
-    const int boff = woff + in * H;
-    for (int j = threadIdx.x; j < ntow * H; j += blockDim.x) {
-      const int tw = j / H, jj = j - tw * H;
-      const float* w = tw == 0 ? t0 : t1;
-      const float* xin = l == 0 ? x : hin + tw * H;
-      hout[j] = activate(dense_unit(w + woff, w + boff, xin, in, H, jj), m.relu);
-    }
-    __syncthreads();
-    hin = hout;
-    hout = hout == h0 ? h1 : h0;
-    woff = boff + H;
-    in = H;
-  }
-  for (int j = threadIdx.x; j < out0 + (ntow == 2 ? out1 : 0); j += blockDim.x) {
-    const bool second = j >= out0;
-    const int out = second ? out1 : out0;
-    const int jj = second ? j - out0 : j;
-    const float* w = second ? t1 : t0;
-    y[j] = dense_unit(w + woff, w + woff + H * out, hin + (second ? H : 0), H, out, jj);
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// Masked sample.  logits (A floats, shared) is overwritten with the masked
-// logits; legal may be shared or global.  With noise, the action is the
-// argmax of masked + gumbel(bits); without (eval), of masked.  Returns the
-// action on every thread and its log-softmax in *logp.  Ends with a sync.
-// ---------------------------------------------------------------------------
-
-__device__ inline int masked_sample(float* logits, const uint8_t* legal, int A, bool noise,
-                                    const Bits& bits, float* masked_out, float* logp,
-                                    Scratch& s) {
-  // (-FLT_MAX, INT_MAX) loses to every real entry, masked ones included
-  float bv = -FLT_MAX, mx = -FLT_MAX;
-  int bi = INT_MAX;
-  for (int j = threadIdx.x; j < A; j += blockDim.x) {
-    const float m = legal[j] ? logits[j] : kMaskedLogit;
-    logits[j] = m;
-    if (masked_out != nullptr) masked_out[j] = m;
-    const float score = noise ? m + gumbel(bits.at(j)) : m;
-    if (better(score, j, bv, bi)) {
-      bv = score;
-      bi = j;
-    }
-    mx = fmaxf(mx, m);
-  }
-  const int action = block_argmax(bv, bi, s);
-  if (logp != nullptr) {
-    const float zmax = block_max(mx, s);
-    float se = 0.0f;
-    for (int j = threadIdx.x; j < A; j += blockDim.x) se += expf(logits[j] - zmax);
-    const float lse = logf(block_sum(se, s));
-    *logp = (logits[action] - zmax) - lse;
-  }
-  return action;
 }
 
 // ---------------------------------------------------------------------------
@@ -275,8 +158,9 @@ __device__ __forceinline__ float warp_sum_all(float v) {
   return v;
 }
 
-// The warp-level towers read their weights transposed and padded (K4
-// builds this image once per launch, see hex_kernels.cu): each layer is its
+// The warp-level towers read their weights transposed and padded (the
+// image: tower_image_kernel in hex_kernels.cu builds it, once per launch for
+// K4 and once per rollout for K2 and K3): each layer is its
 // n_out rows of n_in weights, row stride row_stride(n_in) (pads zero), then
 // its n_out biases rounded up to 4 floats.  A tower is its layers in order, the head last.
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
@@ -316,8 +200,47 @@ struct Team {
   }
 };
 
-// dot(x[0:in4], w[0:in4]) in the order k = 0, 1, ... (one fmaf chain, as
-// dense_unit), x and w 16-byte aligned with zero pads up to in4 (a multiple
+// Hopper's transaction barriers (mbarrier, 8 bytes of shared memory): a
+// bulk copy (cp.async.bulk, the TMA's plain-bytes form, started by one
+// thread) completes its bytes on one, and a thread that has waited for the
+// barrier's phase 0 sees the copied bytes.  Sizes and addresses are
+// multiples of 16 bytes.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// dot(x[0:in4], w[0:in4]) in the order k = 0, 1, ... (one fmaf chain), x and w 16-byte aligned with zero pads up to in4 (a multiple
 // of 4): up to 64 inputs at a time are loaded into registers first, all
 // their loads in flight together, then summed.
 __device__ __forceinline__ float dot_row(const float* x, const float* w, int in4) {
@@ -344,20 +267,21 @@ __device__ __forceinline__ float dot_row(const float* x, const float* w, int in4
   return acc;
 }
 
-// mlp_towers for a team on transposed weights: team thread r computes
-// outputs r, r + n, ... of each layer (n = the team's threads), each a
-// dot_row of its weight row and the layer's input plus its bias, as
-// dense_unit.  x holds round4(F) floats, pads zero; h0/h1 hold 2 towers of
+// One or two towers side by side for a team, on their images: team thread r
+// computes outputs r, r + n, ... of each layer (n = the team's threads), each
+// a dot_row of its weight row and the layer's input, plus its bias.  x holds round4(F) floats, pads zero; h0/h1 hold 2 towers of
 // round4(H) floats (one, when t1 is null), pads zero; y receives out0 (+
 // out1) outputs.  Every layer ends with team.sync(), the last one too.
 // kBf16Hidden rounds each hidden unit to bf16 where it is written, so the
 // next layer's dot takes a bf16 left-hand side (the bf16 bank of K4): with
 // bf16 weights every product is exact in float32 and the fmaf chain sums
-// them as a float32 dot does, in another order than XLA's.
+// them as a float32 dot does, in another order than XLA's.  With ready
+// set, layer l (both towers', the heads last) is read only after barrier
+// ready[l]'s phase 0 (the layer's bulk copies into shared memory, K2).
 template <bool kBf16Hidden = false>
 __device__ inline void team_mlp_towers(const Team& team, const Mlp& m, const float* t0, int out0,
                                        const float* t1, int out1, const float* x, float* h0,
-                                       float* h1, float* y) {
+                                       float* h1, float* y, const uint64_t* ready = nullptr) {
   const int ntow = t1 != nullptr ? 2 : 1;
   const int H = m.H, H4 = round4(m.H);
   const float* hin = x;
@@ -370,6 +294,7 @@ __device__ inline void team_mlp_towers(const Team& team, const Mlp& m, const flo
     // outputs: both towers' H units, or the heads' out0 + out1
     const int split = head ? out0 : H;
     const int total = head ? out0 + (ntow == 2 ? out1 : 0) : ntow * H;
+    if (ready != nullptr) mbar_wait(ready + l, 0);
     for (int j = team.rank; j < total; j += team.n_threads) {
       const bool second = j >= split;
       const int jj = second ? j - split : j;
@@ -393,8 +318,10 @@ __device__ inline void team_mlp_towers(const Team& team, const Mlp& m, const flo
   }
 }
 
-// masked_sample for one warp: lane l scores entries l, l + 32, ... (drawing
-// its bits in that order); argmax with ties to the lowest index; the
+// The masked sample for one warp: logits (A floats, shared) is overwritten
+// with the masked logits; with noise, the action is the argmax of masked +
+// gumbel(bits), without (eval), of masked.  Lane l scores entries l, l + 32,
+// ... (drawing its bits in that order); argmax with ties to the lowest index; the
 // log-softmax of the action when logp is set.  Ends with __syncwarp().
 __device__ inline int warp_masked_sample(float* logits, const uint8_t* legal, int A, bool noise,
                                          const Bits& bits, float* logp) {

@@ -6,21 +6,18 @@
 // Never with --use_fast_math: tanhf/logf/expf must stay the library ones,
 // or the kernels drift from their PyTorch twins.
 //
-// Games are independent: K2 and K3 run one game per CTA, so the grid is
-// the batch; K1 and K7 run a warp per game and K4 a team of warps per game,
-// several games per CTA.  Each
-// entry launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() of its launch.
+// Games are independent: K1 and K7 run a warp per game and K2-K4 a team of
+// warps per game, several games per CTA.  Each entry launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError() of its
+// launch.
 //
 // Randomness: each kernel takes an optional bits array in the JAX package's
 // interpret-mode layout and maps bits to samples exactly as the JAX kernels
-// do.  Without it, every thread draws from its own Philox stream
-// (curand_init(seed, row * blockDim + thread, 0); K4 and K7: curand_init(
-// seed, game * 32 + lane, 0)); the wrapper draws a fresh seed per launch from the
-// caller's generator, so no two launches share a stream and a restored
-// generator replays the streams.
-// That is this port's stream deviation, as the TPU hardware PRNG is the JAX
-// package's.
+// do.  Without it, each lane of a game draws from its own Philox stream,
+// curand_init(seed, game * 32 + lane, 0); the wrapper draws a fresh seed per
+// launch from the caller's generator, so no two launches share a stream and
+// a restored generator replays the streams.  That is this port's stream
+// deviation, as the TPU hardware PRNG is the JAX package's.
 
 #include <cuda_runtime.h>
 
@@ -31,16 +28,8 @@
 using hex::Bits;
 using hex::Board;
 using hex::Mlp;
-using hex::Scratch;
 
 namespace {
-
-__device__ __forceinline__ void philox_init(curandStatePhilox4_32_10_t* st,
-                                            unsigned long long seed) {
-  const unsigned long long sub =
-      static_cast<unsigned long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  curand_init(seed, sub, 0, st);
-}
 
 // ===========================================================================
 // K1 and K7 share a launch shape: one warp per game, games_per_cta games
@@ -164,52 +153,141 @@ __global__ void __launch_bounds__(32 * kEnvMaxGames) step_kernel(StepArgs a) {
 
 // ===========================================================================
 // K2 — agent pass.  Replaces ops/pallas_policy.py:_agent_kernel (entry
-// `agent_forward_sample`).  One game per CTA of 128 threads: both towers'
-// layers run side by side (thread j computes output j), then the masked
-// Gumbel-max sample, its log-softmax and the value.  Bound: operations are
-// 2(F*2H + (n_layers-1)*2H*H + H*(A+1)) FLOP per game (~35 KFLOP at 7x7,
-// H = 64; 9 MFLOP at B = 256, 0.13 us at the fp32 peak); bytes are the
-// params (~72 KB, read once) plus per-game obs/legal/bits/outputs.  Both are
-// far below the launch cost; weights are read straight from global memory
-// (L2-resident after the first CTAs), coalesced by the (in, out) layout.
+// `agent_forward_sample`).  Per game: both towers of the agent on its
+// observation, side by side, then the masked Gumbel-max sample, its
+// log-softmax and the value.  Bound: operations, 2(F*2H + (n_layers-1)*2H*H
+// + H*(A+1)) FLOP per game (~35 KFLOP at 7x7, H = 64; 9 MFLOP at B = 256,
+// 0.13 us at the fp32 peak); the bytes (the packed float32 weights, ~72 KB,
+// read once, plus each game's rows) take less.  But every game reads all of
+// the agent: its ~76 KB image, 19.5 MB at B = 256 were each game to fetch it.
+//
+// The first design ran one game per CTA of 128 threads: thread j computed
+// output j in an fmaf loop that read the (in, out) weights from L2 one by
+// one, block barriers between the layers and in the sample's three
+// reductions (8.1 us per call at 7x7, B = 256 on one H100).  Now:
+//   - the agent is transposed and padded once per rollout (hex_tower_image,
+//     the layout of team_mlp_towers), so a thread's weight row is
+//     contiguous and dot_row has a row's loads in flight before its chain;
+//   - one thread of each CTA copies the image into shared memory with bulk
+//     copies (cp.async.bulk, the TMA's plain-bytes form), layer l of both
+//     towers onto transaction barrier l, so the games start on layer 0 while
+//     the later layers are in flight, and the CTA's games share the copy; an
+//     image that does not fit (MLP-wide-deep at 9x9, ~540 KB) is read from
+//     global memory (L2) instead;
+//   - a team of kAgentTeamWarps warps per game runs both towers side by side
+//     (team_mlp_towers: one hidden unit a thread at H = 64) behind the game's
+//     own named barrier, then the leader warp samples (warp_masked_sample,
+//     butterflies); the one block barrier publishes the transaction
+//     barriers' set-up;
+//   - up to kAgentMaxGames games per CTA, as many as still leave no SM idle
+//     (ceil(B / SMs)): B = 256 runs 128 CTAs of two games, B = 30 30 CTAs.
+// Measured on one H100 (7x7, B = 256, device time): 5.4 us as kept; 5.6 us
+// with teams of two warps; 5.7 us with one game per CTA (floor(B / SMs), the
+// rule of K1 and K3), 6.0 us with both; 6.2 us with two-warp teams at four
+// games per CTA (64 CTAs); the image staged by every thread with 16-byte
+// cp.async behind a block barrier 6.7 us (four warps, one game per CTA) and
+// 7.9 us (two); the image read from L2 by each game, as K3 reads its bank,
+// 10.2 us (four warps) and 11.8 us (two).
+// Randomness: with bits the JAX map; without, each lane of a game draws from
+// curand_init(seed, game * 32 + lane, 0), as K3 and K4: the stream differs
+// from the first design's (one per CTA thread); its distribution does not.
 // ===========================================================================
 
+constexpr int kAgentTeamWarps = 4;  // warps per game
+// games per CTA at most: 256 threads, whose launch bound leaves a thread the
+// 255 registers it can use (dot_row holds 32 float4; K3 at 512 spilled it)
+constexpr int kAgentMaxGames = 2;
+
 struct AgentArgs {
-  const float* params;  // pi tower then vf tower, see hex_common.cuh
+  const float* image;  // the agent's image: pi tower (ttower_size(m, A)), then vf tower
   Mlp m;
   const int8_t* obs;     // (B, F)
   const uint8_t* legal;  // (B, A)
   const uint32_t* bits;  // (B, A) or null
   unsigned long long seed;
-  int* o_action;
+  float* o_masked;  // (B, A)
   float* o_logp;
   float* o_value;
-  float* o_masked;  // (B, A)
+  int* o_action;
+  int B, games_per_cta;
+  int staged;  // the image in shared memory (else read from global memory)
 };
 
-__global__ void agent_kernel(AgentArgs a) {
-  extern __shared__ float smem_agent[];
-  __shared__ Scratch red;
+__host__ __device__ inline int agent_image_floats(const Mlp& m) {
+  return hex::ttower_size(m, m.A) + hex::ttower_size(m, 1);
+}
+
+// the staged image's floats with its n_layers + 1 barriers (8 bytes each)
+__host__ __device__ inline int agent_staged_floats(const Mlp& m) {
+  return agent_image_floats(m) + hex::round4(2 * (m.n_layers + 1));
+}
+
+// one game's slice of shared memory (floats): x (round4(F)), h0 and h1 (two
+// towers of round4(H) each), y (round4(A + 1): the logits, then the value)
+__host__ __device__ inline int agent_game_floats(const Mlp& m) {
+  return hex::round4(m.F) + 4 * hex::round4(m.H) + hex::round4(m.A + 1);
+}
+
+__global__ void __launch_bounds__(32 * kAgentTeamWarps * kAgentMaxGames) agent_kernel(AgentArgs a) {
+  extern __shared__ __align__(16) float smem_agent[];
   const Mlp& m = a.m;
-  const int b = blockIdx.x;
-  float* x = smem_agent;
-  float* h0 = x + m.F;
-  float* h1 = h0 + 2 * m.H;
-  float* y = h1 + 2 * m.H;
-  for (int i = threadIdx.x; i < m.F; i += blockDim.x) x[i] = static_cast<float>(a.obs[b * m.F + i]);
-  __syncthreads();
+  const float* image = a.image;
+  const uint64_t* ready = nullptr;
+  if (a.staged) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem_agent + agent_image_floats(m));
+    if (threadIdx.x == 0) {
+      for (int l = 0; l <= m.n_layers; ++l) hex::mbar_init(bars + l, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();  // the barriers are set up: the kernel's only block barrier
+    if (threadIdx.x == 0) {
+      // layer l of both towers in flight onto barrier l: the games start on
+      // layer 0 while the later layers are still on their way
+      const int vf = hex::ttower_size(m, m.A);
+      int off = 0, in = m.F;
+      for (int l = 0; l <= m.n_layers; ++l) {
+        const bool head = l == m.n_layers;
+        const int pi_n = hex::tlayer_size(in, head ? m.A : m.H);
+        const int vf_n = hex::tlayer_size(in, head ? 1 : m.H);
+        hex::mbar_expect_tx(bars + l, 4u * (pi_n + vf_n));
+        hex::bulk_copy(smem_agent + off, a.image + off, 4u * pi_n, bars + l);
+        hex::bulk_copy(smem_agent + vf + off, a.image + vf + off, 4u * vf_n, bars + l);
+        off += pi_n;
+        in = m.H;
+      }
+    }
+    image = smem_agent;
+    ready = bars;
+  }
+  const int wid = threadIdx.x >> 5, slot = wid / kAgentTeamWarps;
+  const int b = blockIdx.x * a.games_per_cta + slot;
+  if (b >= a.B) return;  // the whole team: no barrier waits for it
+  const hex::Team team{static_cast<int>(threadIdx.x) % (32 * kAgentTeamWarps), 32 * kAgentTeamWarps,
+                       1 + slot};
+  const int F4 = hex::round4(m.F), H4 = hex::round4(m.H);
+  float* x = smem_agent + (a.staged ? agent_staged_floats(m) : 0) + slot * agent_game_floats(m);
+  float* h0 = x + F4;
+  float* h1 = h0 + 2 * H4;
+  float* y = h1 + 2 * H4;
+  // the observation, and the pads the float4 reads cover, zeroed
+  for (int i = team.rank; i < F4; i += team.n_threads)
+    x[i] = i < m.F ? static_cast<float>(a.obs[static_cast<long long>(b) * m.F + i]) : 0.0f;
+  for (int i = m.H + team.rank; i < H4; i += team.n_threads)
+    h0[i] = h0[H4 + i] = h1[i] = h1[H4 + i] = 0.0f;
+  team.sync();
+  hex::team_mlp_towers(team, m, image, m.A, image + hex::ttower_size(m, m.A), 1, x, h0, h1, y,
+                       ready);
+  if (wid % kAgentTeamWarps != 0) return;  // a helper: its share is done
 
-  const float* pi = a.params;
-  const float* vf = pi + hex::tower_size(m, m.A);
-  hex::mlp_towers(m, pi, m.A, vf, 1, x, h0, h1, y);
-
+  const int lane = hex::lane_id();
+  const long long row = static_cast<long long>(b) * m.A;
   curandStatePhilox4_32_10_t st;
-  if (a.bits == nullptr) philox_init(&st, a.seed);
-  const Bits bits{a.bits != nullptr ? a.bits + b * m.A : nullptr, &st};
+  if (a.bits == nullptr) curand_init(a.seed, static_cast<unsigned long long>(b) * 32 + lane, 0, &st);
+  const Bits bits{a.bits != nullptr ? a.bits + row : nullptr, &st};
   float logp;
-  const int action = hex::masked_sample(y, a.legal + b * m.A, m.A, true, bits,
-                                        a.o_masked + b * m.A, &logp, red);
-  if (threadIdx.x == 0) {
+  const int action = hex::warp_masked_sample(y, a.legal + row, m.A, true, bits, &logp);
+  for (int j = lane; j < m.A; j += 32) a.o_masked[row + j] = y[j];  // the lane's own entries
+  if (lane == 0) {
     a.o_action[b] = action;
     a.o_logp[b] = logp;
     a.o_value[b] = y[m.A];
@@ -231,7 +309,7 @@ __global__ void agent_kernel(AgentArgs a) {
 // one by one, block barriers between the layers and in the sample's
 // reductions, most lanes idle (10.1 us per call at B = 256 on one H100; the
 // same pattern was 62% of K4's step before its redesign).  Now K4's pieces:
-//   - the bank is transposed and padded once per rollout (hex_bank_image:
+//   - the bank is transposed and padded once per rollout (hex_tower_image:
 //     tower_image_kernel, the layout of team_mlp_towers), so a thread's
 //     weight row is contiguous and dot_row has all of a row's loads in
 //     flight before its fmaf chain;
@@ -875,10 +953,10 @@ __global__ void __launch_bounds__(32 * kEnvMaxGames) random_rollout_kernel(Rando
   }
 }
 
-// shared-memory bytes of the x/h0/h1/y float buffers
-int mlp_smem_bytes(const Mlp& m) { return (m.F + 4 * m.H + m.A + 1) * static_cast<int>(sizeof(float)); }
-
 int finish_launch() { return static_cast<int>(cudaGetLastError()); }
+
+// dynamic shared memory a CTA may take on the card (227 KB)
+constexpr int kMaxSmem = 227 * 1024;
 
 cudaError_t allow_smem(const void* kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -886,12 +964,15 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
 }
 
 // games per CTA for B games, at most max_games: no more than keep one CTA
-// per SM where B allows (see K1's and K7's launch shape above)
-cudaError_t env_games_per_cta(int B, int* gpc, int max_games = kEnvMaxGames) {
+// per SM where B allows (see K1's and K7's launch shape above); with
+// round_up, as many as share a CTA's staged weights and still leave no SM
+// idle (K2)
+cudaError_t env_games_per_cta(int B, int* gpc, int max_games = kEnvMaxGames, bool round_up = false) {
   int dev = 0, n_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  *gpc = std::max(1, std::min(max_games, B / std::max(n_sm, 1)));
+  n_sm = std::max(n_sm, 1);
+  *gpc = std::max(1, std::min(max_games, (B + (round_up ? n_sm - 1 : 0)) / n_sm));
   return e;
 }
 
@@ -936,19 +1017,26 @@ int hex_step(const void* stones, const void* labels, const void* to_move, const 
   return launch_env(step_kernel, a, L, stream);
 }
 
-int hex_agent(const void* params, int F, int H, int A, int n_layers, int relu, const void* obs,
-              const void* legal, const void* bits, unsigned long long seed,
-              void* o_action, void* o_logp, void* o_value, void* o_masked, int B,
-              void* stream) {
-  AgentArgs a{static_cast<const float*>(params), Mlp{F, H, A, n_layers, relu},
-              static_cast<const int8_t*>(obs), static_cast<const uint8_t*>(legal),
+int hex_agent(const void* image, int F, int H, int A, int n_layers, int relu, const void* obs,
+              const void* legal, const void* bits, unsigned long long seed, void* o_masked,
+              void* o_logp, void* o_value, void* o_action, int B, void* stream) {
+  AgentArgs a{static_cast<const float*>(image), Mlp{F, H, A, n_layers, relu},
+              static_cast<const int8_t*>(obs),  static_cast<const uint8_t*>(legal),
               static_cast<const uint32_t*>(bits), seed,
-              static_cast<int*>(o_action), static_cast<float*>(o_logp),
-              static_cast<float*>(o_value), static_cast<float*>(o_masked)};
-  const int smem = mlp_smem_bytes(a.m);
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(agent_kernel), smem);
+              static_cast<float*>(o_masked),    static_cast<float*>(o_logp),
+              static_cast<float*>(o_value),     static_cast<int*>(o_action),
+              B,                                0,
+              0};
+  cudaError_t e = env_games_per_cta(B, &a.games_per_cta, kAgentMaxGames, true);
   if (e != cudaSuccess) return static_cast<int>(e);
-  agent_kernel<<<B, 128, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  // the image staged in shared memory where it fits beside the games' slices
+  const int slices = a.games_per_cta * agent_game_floats(a.m);
+  a.staged = (agent_staged_floats(a.m) + slices) * static_cast<int>(sizeof(float)) <= kMaxSmem;
+  const int smem = ((a.staged ? agent_staged_floats(a.m) : 0) + slices) * static_cast<int>(sizeof(float));
+  if ((e = allow_smem(reinterpret_cast<const void*>(agent_kernel), smem)) != cudaSuccess)
+    return static_cast<int>(e);
+  agent_kernel<<<(B + a.games_per_cta - 1) / a.games_per_cta, 32 * kAgentTeamWarps * a.games_per_cta,
+                 smem, static_cast<cudaStream_t>(stream)>>>(a);
   return finish_launch();
 }
 
@@ -973,14 +1061,17 @@ int hex_bank(const void* image, int F, int H, int A, int n_layers, int relu, int
   return finish_launch();
 }
 
-// K3's bank image: the P1 members of bank (P1, tower_size(m, A)) transposed
-// and padded into out (P1 x ttower_size(m, A) floats), once per rollout
-int hex_bank_image(const void* bank, int F, int H, int A, int n_layers, int P1, void* out,
-                   void* stream) {
+// Towers transposed and padded by tower_image_kernel into out, once per
+// rollout: instances first .. first + count - 1 of (0 the agent's pi tower,
+// 1 its vf tower, 2 + i bank member i) — K2's agent image (first 0, count 2,
+// from agent) or K3's bank image (first 2, count P1, from bank)
+int hex_tower_image(const void* agent, const void* bank, int F, int H, int A, int n_layers,
+                    int first, int count, void* out, void* stream) {
   const Mlp m{F, H, A, n_layers, 0};
   const int blocks = (hex::ttower_size(m, A) + 255) / 256;
-  tower_image_kernel<<<dim3(blocks, P1), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      nullptr, static_cast<const float*>(bank), m, static_cast<float*>(out), 2, 0);
+  tower_image_kernel<<<dim3(blocks, count), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(agent), static_cast<const float*>(bank), m, static_cast<float*>(out),
+      first, 0);
   return finish_launch();
 }
 

@@ -43,8 +43,8 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 KERNELS = (
-    "k1_step", "k2_agent", "k3_bank", "k3_bank_image", "k4_rollout", "k4_rollout_bf16", "k5_gae",
-    "k6_ppo", "k7_random_rollout",
+    "k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
+    "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout",
 )
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -59,7 +59,7 @@ _ARGTYPES = {
     "hex_step": [P] * 9 + [P, P] + [I, I, I, P],  # state in, action, active; ints, bytes
     "hex_agent": [P, I, I, I, I, I, P, P, P, U64, P, P, P, P, I, P],
     "hex_bank": [P, I, I, I, I, I, I, P, P, P, P, P, U64, P, P, I, P],
-    "hex_bank_image": [P, I, I, I, I, I, P, P],
+    "hex_tower_image": [P, P, I, I, I, I, I, I, P, P],  # agent, bank, dims, first, count, out
     "hex_rollout": (
         [P, P, P, P, I, I, I, I, I, I]  # weights, image scratch, dims
         + [P] * 9  # state in

@@ -4,25 +4,28 @@ Counterparts of the JAX package's ``ops/pallas_policy.py``:
 
 - K2 ``agent_forward_sample`` (``_agent_kernel``): the agent's MLP forward,
   masked logits, Gumbel-max sample, log-prob of the sampled action, and the
-  value, in one launch.
+  value, in one launch, on the agent operand built once per rollout
+  (``PolicyOps.agent_operand``).
 - K3 ``bank_forward_sample`` (``_bank_kernel``): for each row, the pi tower
   and action head of that row's opponent (a pool slot, or the best at index
   P), then the masked Gumbel-max sample, in one launch, on the bank
   operand built once per rollout (``PolicyOps.bank_operand``).
 
 Weights travel as flat float32 runs, one per tower, with the kernels laid
-out (in, out) so that the CUDA threads computing neighbouring outputs read
-neighbouring words (layout in ``csrc/hex_common.cuh``):
+out (in, out) (layout in ``csrc/hex_common.cuh``):
 
 - agent: the pi tower with its action head, then the vf tower with its
   value head (``pack_agent``);
 - bank: one row per member, best last, each a pi tower with its action head
-  (``stack_bank``), (P1, S).  The K3 kernel reads it as a bank image
-  (``bank_image_cuda``, twin ``bank_image_twin``): each layer's weights
-  transposed, one padded row per output (the layout of
-  ``csrc/hex_common.cuh`` ``team_mlp_towers``), built once per rollout
-  beside the stack, the pair a ``BankOperand``.  The TPU's window-masked
-  stack is not needed.
+  (``stack_bank``), (P1, S).  The TPU's window-masked stack is not needed.
+
+The kernels read the towers as images (``tower_image_twin``; on the card
+``tower_image_kernel``): each layer's weights transposed, one padded row
+per output (the layout of ``csrc/hex_common.cuh`` ``team_mlp_towers``),
+built once per rollout beside the packing: the agent's image
+(``agent_image_cuda``) with the packed agent is an ``AgentOperand``, the
+bank's (``bank_image_cuda``) with the stack a ``BankOperand``.  The twins
+read the packing.
 
 Each pass has a plain PyTorch twin here (``*_twin``) that computes the same
 function from the same packed weights.  The wrappers take the kernel for a
@@ -115,30 +118,76 @@ def ttower_size(d: MlpDims, out: int) -> int:
     return tlayer_size(d.F, d.H) + (d.n_layers - 1) * tlayer_size(d.H, d.H) + tlayer_size(d.H, out)
 
 
-def bank_image_twin(stacked: torch.Tensor, d: MlpDims) -> torch.Tensor:
-    """Plain PyTorch of K3's bank image: (P1, ``ttower_size(d, A)``)."""
-    P1 = stacked.shape[0]
+def tower_image_twin(towers: torch.Tensor, d: MlpDims, out: int) -> torch.Tensor:
+    """Plain PyTorch of ``tower_image_kernel``: packed towers (P, ``tower_size(d,
+    out)``) -> their images (P, ``ttower_size(d, out)``)."""
+    P = towers.shape[0]
     parts = []
-    for W, b in tower_views(stacked, d, d.A):
+    for W, b in tower_views(towers, d, out):
         n_in, n_out = W.shape[-2:]
-        rows = torch.zeros((P1, n_out, row_stride(n_in)), dtype=torch.float32, device=stacked.device)
+        rows = torch.zeros((P, n_out, row_stride(n_in)), dtype=torch.float32, device=towers.device)
         rows[:, :, :n_in] = W.transpose(1, 2)
-        bias = torch.zeros((P1, round4(n_out)), dtype=torch.float32, device=stacked.device)
+        bias = torch.zeros((P, round4(n_out)), dtype=torch.float32, device=towers.device)
         bias[:, :n_out] = b
-        parts += [rows.reshape(P1, -1), bias]
+        parts += [rows.reshape(P, -1), bias]
     return torch.cat(parts, dim=1)
 
 
+def bank_image_twin(stacked: torch.Tensor, d: MlpDims) -> torch.Tensor:
+    """Plain PyTorch of K3's bank image: (P1, ``ttower_size(d, A)``)."""
+    return tower_image_twin(stacked, d, d.A)
+
+
+def agent_image_twin(packed: torch.Tensor, d: MlpDims) -> torch.Tensor:
+    """Plain PyTorch of K2's agent image: the pi tower's image, then the vf
+    tower's, (``ttower_size(d, A) + ttower_size(d, 1)``,)."""
+    split = tower_size(d, d.A)
+    return torch.cat([tower_image_twin(packed[None, :split], d, d.A)[0],
+                      tower_image_twin(packed[None, split:], d, 1)[0]])
+
+
+def _tower_image_cuda(kernel: str, agent, bank, d: MlpDims, first: int, count: int, floats: int):
+    """``tower_image_kernel``'s instances ``first`` .. ``first + count - 1``
+    (0 the agent's pi tower, 1 its vf tower, 2 + i bank member i) into one
+    new buffer of ``floats``, counted as a launch of ``kernel``."""
+    src = agent if agent is not None else bank
+    image = torch.empty((floats,), dtype=torch.float32, device=src.device)
+    p = cuda_lib.ptr
+    cuda_lib.launch(kernel, "hex_tower_image",
+                    p(agent), p(bank), d.F, d.H, d.A, d.n_layers, first, count, p(image))
+    return image
+
+
 def bank_image_cuda(stacked: torch.Tensor, d: MlpDims) -> torch.Tensor:
-    """K3's bank image on the card (``tower_image_kernel``), the twin's
-    values exactly."""
+    """K3's bank image on the card, the twin's values exactly."""
     P1 = stacked.shape[0]
     stacked = cuda_lib.check_cuda("stacked", stacked, torch.float32, (P1, tower_size(d, d.A)))
-    image = torch.empty((P1, ttower_size(d, d.A)), dtype=torch.float32, device=stacked.device)
-    p = cuda_lib.ptr
-    cuda_lib.launch("k3_bank_image", "hex_bank_image",
-                    p(stacked), d.F, d.H, d.A, d.n_layers, P1, p(image))
-    return image
+    size = ttower_size(d, d.A)
+    return _tower_image_cuda("k3_bank_image", None, stacked, d, 2, P1, P1 * size).view(P1, size)
+
+
+def agent_image_cuda(packed: torch.Tensor, d: MlpDims) -> torch.Tensor:
+    """K2's agent image on the card, the twin's values exactly."""
+    packed = cuda_lib.check_cuda("packed", packed, torch.float32,
+                                 (tower_size(d, d.A) + tower_size(d, 1),))
+    return _tower_image_cuda("k2_agent_image", packed, None, d, 0, 2,
+                             ttower_size(d, d.A) + ttower_size(d, 1))
+
+
+class AgentOperand(NamedTuple):
+    """The agent as the agent pass reads it, built once per rollout
+    (``agent_operand``): ``packed`` (``pack_agent``), which the twin reads;
+    and where the kernel runs, ``image``, its agent image
+    (``agent_image_cuda``), which the kernel reads."""
+
+    packed: torch.Tensor
+    image: Optional[torch.Tensor] = None
+
+
+def agent_operand(packed: torch.Tensor, d: MlpDims, impl: str = "auto") -> AgentOperand:
+    """``packed`` with its agent image where ``impl`` takes the kernel
+    (``use_kernel``), alone where it takes the twin."""
+    return AgentOperand(packed, agent_image_cuda(packed, d) if use_kernel(packed, impl) else None)
 
 
 class BankOperand(NamedTuple):
@@ -250,45 +299,52 @@ def agent_forward_sample_twin(packed, d: MlpDims, obs_flat, legal, bits) -> Agen
     return AgentActResult(action, logp, tower_apply(vf, x, d)[:, 0], masked)
 
 
-def _agent_cuda(packed, d: MlpDims, obs_flat, legal, bits, generator) -> AgentActResult:
+def _agent_cuda(image, d: MlpDims, obs_flat, legal, bits, generator) -> AgentActResult:
     B = obs_flat.shape[0]
     chk = cuda_lib.check_cuda
-    packed = chk("packed", packed, torch.float32, (tower_size(d, d.A) + tower_size(d, 1),))
-    obs = chk("obs", obs_flat.to(torch.int8), torch.int8, (B, d.F))
-    legal = chk("legal", legal.to(torch.bool), torch.bool, (B, d.A))
+    image = chk("image", image, torch.float32, (ttower_size(d, d.A) + ttower_size(d, 1),))
+    obs = chk("obs", obs_flat, torch.int8, (B, d.F))
+    legal = chk("legal", legal, torch.bool, (B, d.A))
     seed = 0
     if bits is not None:
         bits = chk("bits", bits, torch.int32, (B, d.A))
     else:
         seed = cuda_lib.philox_seed(generator)
-    dev = obs.device
-    action = torch.empty((B,), dtype=torch.int32, device=dev)
-    logp = torch.empty((B,), dtype=torch.float32, device=dev)
-    value = torch.empty((B,), dtype=torch.float32, device=dev)
-    masked = torch.empty((B, d.A), dtype=torch.float32, device=dev)
+    # one output buffer: the masked logits, the log-probs, the values, then
+    # the actions' int32 words
+    out = torch.empty((B * (d.A + 3),), dtype=torch.float32, device=obs.device)
+    masked = out[: B * d.A].view(B, d.A)
+    logp = out[B * d.A : B * (d.A + 1)]
+    value = out[B * (d.A + 1) : B * (d.A + 2)]
+    action = out[B * (d.A + 2) :].view(torch.int32)
     p = cuda_lib.ptr
     cuda_lib.launch(
         "k2_agent", "hex_agent",
-        p(packed), d.F, d.H, d.A, d.n_layers, int(d.relu), p(obs), p(legal), p(bits),
-        seed, p(action), p(logp), p(value), p(masked), B,
+        p(image), d.F, d.H, d.A, d.n_layers, int(d.relu), p(obs), p(legal), p(bits),
+        seed, p(masked), p(logp), p(value), p(action), B,
     )
     return AgentActResult(action, logp, value, masked)
 
 
 def agent_forward_sample(
-    packed: torch.Tensor,
+    agent: AgentOperand,
     d: MlpDims,
-    obs_flat: torch.Tensor,  # (B, F) integer boards
+    obs_flat: torch.Tensor,  # (B, F) integer boards (int8 for the kernel)
     legal: torch.Tensor,  # (B, A) bool
     bits: Optional[torch.Tensor] = None,  # (B, A) int32 bit patterns
     generator: Optional[torch.Generator] = None,
     impl: str = "auto",
 ) -> AgentActResult:
-    """One pass: agent MLP forward, masked Gumbel sample, log-prob, value."""
+    """One pass: agent MLP forward, masked Gumbel sample, log-prob, value, on
+    ``agent`` (``agent_operand``, built once per rollout: the kernel reads
+    its image, the twin its packing)."""
     if use_kernel(obs_flat, impl):
-        return _agent_cuda(packed, d, obs_flat, legal, bits, generator)
+        if agent.image is None:
+            raise ValueError("the agent kernel reads the agent image: build the operand once per "
+                             "rollout with agent_operand")
+        return _agent_cuda(agent.image, d, obs_flat, legal, bits, generator)
     bits = _bits_or_draw(bits, generator, legal.shape, obs_flat.device)
-    return agent_forward_sample_twin(packed, d, obs_flat, legal, bits)
+    return agent_forward_sample_twin(agent.packed, d, obs_flat, legal, bits)
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +470,14 @@ class PolicyOps:
         best = _pack_tower(bank.best_params, "pi", "action_head", n)
         return torch.cat([members, best[None]], dim=0).contiguous()
 
-    def agent_act(self, packed, obs, legal, generator=None, bits=None) -> AgentActResult:
+    def agent_operand(self, params) -> AgentOperand:
+        """The agent pass's operand, built once per rollout: ``pack_agent``
+        with, where the kernel runs, its agent image."""
+        return agent_operand(self.pack_agent(params), self.dims, self.impl)
+
+    def agent_act(self, agent: AgentOperand, obs, legal, generator=None, bits=None) -> AgentActResult:
         obs_flat = obs.reshape(obs.shape[0], -1)
-        return agent_forward_sample(
-            packed, self.dims, obs_flat, legal, bits, generator, self.impl
-        )
+        return agent_forward_sample(agent, self.dims, obs_flat, legal, bits, generator, self.impl)
 
     def bank_operand(self, bank) -> BankOperand:
         """The bank pass's operand, built once per rollout: ``stack_bank``

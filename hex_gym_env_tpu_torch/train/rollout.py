@@ -255,7 +255,7 @@ class SelfplayRunner:
         # a sampled board is not empty: no opening-move table
         first_logits = None if self.cfg.sample_board else self.first_move_logits(bank)
         pol = self.pol
-        packed_agent = pol.pack_agent(params) if pol is not None else None
+        agent_op = pol.agent_operand(params) if pol is not None else None
         bank_op = pol.bank_operand(bank) if pol is not None else None
 
         c = carry
@@ -264,7 +264,7 @@ class SelfplayRunner:
             if pol is not None:
                 obs = hex_env.observe(self.topo, c.env)
                 legal = hex_env.legal_mask(self.topo, c.env)
-                res = pol.agent_act(packed_agent, obs, legal, generator)
+                res = pol.agent_act(agent_op, obs, legal, generator)
                 action, log_prob, value = res.action, res.log_prob, res.value
             else:
                 obs, legal, logits, value = self.policy_logits_value(params, c.env)

@@ -104,7 +104,7 @@ def test_pinned_kernels_refuse_cpu_tensors():
     legal = hex_env.legal_mask(topo, state)
     g = torch.Generator().manual_seed(0)
     with pytest.raises(ValueError, match="pallas"):
-        pol.agent_act(pol.pack_agent(params), obs, legal, g)
+        pol.agent_act(pol.agent_operand(params), obs, legal, g)
     bank = init_bank(params, 2)
     with pytest.raises(ValueError, match="pallas"):
         pol.bank_act(pol.bank_operand(bank), torch.zeros(2, dtype=torch.bool),

@@ -151,9 +151,12 @@ def test_draw_bits_are_uniform_words():
     assert abs(float(u.mean()) - 0.5) < 0.02
 
 
-@pytest.mark.parametrize("family", ["MLP-default", "MLP-deep"])
-def test_agent_twin_matches_pallas_agent_kernel(family):
-    n, B = 5, 32
+@pytest.mark.parametrize("n,family", [(5, "MLP-default"), (5, "MLP-deep"), (5, "MLP-wide-deep"),
+                                      (13, "MLP-default")])
+def test_agent_twin_matches_pallas_agent_kernel(n, family):
+    """13x13 (169 actions, 256 lanes) is a board the scan path takes where
+    the fused rollout refuses."""
+    B = 32
     model = jax_make_policy(family, n * n)
     variables = _wide_logits(model.init(jax.random.key(0), jnp.zeros((1, n, n), jnp.float32)))
     obs, legal = _random_positions(n, B, seed=11)
@@ -165,7 +168,7 @@ def test_agent_twin_matches_pallas_agent_kernel(family):
 
     tmodel = flax_to_torch(_np_tree(variables), ACT[family])
     pol = policy_kernel.PolicyOps(tmodel)
-    got = pol.agent_act(pol.pack_agent(tmodel.state_dict()), torch.from_numpy(obs),
+    got = pol.agent_act(pol.agent_operand(tmodel.state_dict()), torch.from_numpy(obs),
                         torch.from_numpy(legal), bits=bits)
     np.testing.assert_array_equal(got.action.numpy(), np.asarray(res.action))
     np.testing.assert_allclose(got.log_prob.numpy(), np.asarray(res.log_prob), atol=ATOL)
@@ -331,3 +334,79 @@ def test_bank_pass_use_best_and_image_rule():
     assert torch.equal(a, a2) and torch.equal(m, m2)
     with pytest.raises(ValueError, match="CUDA"):
         pk.bank_image_cuda(stacked, d)
+
+
+def _np_tower_image(tower, n_in0, H, n_layers, out):
+    """A packed tower (in, out kernels, then biases, layer by layer) as its
+    image, in numpy: per layer the transposed kernel, each row padded with
+    zeros to a multiple of 4 floats whose quarter is odd, then the biases
+    padded with zeros to a multiple of 4."""
+    parts, off, n_in = [], 0, n_in0
+    for n_out in [H] * n_layers + [out]:
+        W = tower[off : off + n_in * n_out].reshape(n_in, n_out)
+        off += n_in * n_out
+        stride = -(-n_in // 4) * 4
+        stride += 4 if (stride // 4) % 2 == 0 else 0
+        rows = np.zeros((n_out, stride), np.float32)
+        rows[:, :n_in] = W.T
+        bias = np.zeros(-(-n_out // 4) * 4, np.float32)
+        bias[:n_out] = tower[off : off + n_out]
+        off += n_out
+        parts += [rows.ravel(), bias]
+        n_in = n_out
+    assert off == tower.size
+    return np.concatenate(parts)
+
+
+@pytest.mark.parametrize("n,family", [(7, "MLP-default"), (13, "MLP-default"), (9, "MLP-wide-deep")])
+def test_agent_image_layout(n, family):
+    """K2's agent image: the pi tower's image (action head last), then the vf
+    tower's (value head last), each in the layout of csrc/hex_common.cuh
+    team_mlp_towers, against a numpy transpose-and-pad of the packed towers."""
+    pk = policy_kernel
+    g = torch.Generator().manual_seed(1)
+    model = make_policy(family, n * n, generator=g)
+    pol = pk.PolicyOps(model)
+    d = pol.dims
+    packed = pol.pack_agent({k: torch.randn(v.shape, generator=g) for k, v in model.state_dict().items()})
+    image = pk.agent_image_twin(packed, d)
+    assert image.dtype == torch.float32
+    assert image.shape == (pk.ttower_size(d, d.A) + pk.ttower_size(d, 1),)
+    split = pk.tower_size(d, d.A)
+    want = np.concatenate([
+        _np_tower_image(packed[:split].numpy(), d.F, d.H, d.n_layers, d.A),
+        _np_tower_image(packed[split:].numpy(), d.F, d.H, d.n_layers, 1)])
+    np.testing.assert_array_equal(image.numpy(), want)
+    assert pol.agent_operand(model.state_dict()).image is None  # on the CPU the twin reads packed
+
+
+def test_agent_pass_operand_rule(monkeypatch):
+    """The twin path builds no image and reads the packing; "pallas" on a
+    CPU tensor raises; the kernel path refuses an operand without its image."""
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    pk = policy_kernel
+    n, B = 4, 16
+    g = torch.Generator().manual_seed(3)
+    model = make_policy("MLP-default", n * n, generator=g)
+    params = model.state_dict()
+    pol = pk.PolicyOps(model)
+    d = pol.dims
+    obs = torch.randint(-1, 2, (B, d.F), generator=g).to(torch.int8)
+    legal = obs == 0
+    bits = masked.draw_bits(g, (B, d.A), "cpu")
+    cuda_lib.reset_launches()
+    for impl in ("auto", "lax"):
+        op = pk.PolicyOps(model, impl).agent_operand(params)
+        assert op.image is None and torch.equal(op.packed, pol.pack_agent(params))
+        got = pk.PolicyOps(model, impl).agent_act(op, obs, legal, bits=bits)
+        want = pk.agent_forward_sample_twin(op.packed, d, obs, legal, bits)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert cuda_lib.launches["k2_agent_image"] == 0 and cuda_lib.launches["k2_agent"] == 0
+    with pytest.raises(ValueError, match="pallas"):
+        pk.PolicyOps(model, "pallas").agent_operand(params)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk.agent_image_cuda(pol.pack_agent(params), d)
+    monkeypatch.setattr(pk, "use_kernel", lambda t, impl: True)
+    with pytest.raises(ValueError, match="agent image"):
+        pk.agent_forward_sample(pk.AgentOperand(pol.pack_agent(params)), d, obs, legal, bits)

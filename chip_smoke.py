@@ -55,7 +55,17 @@
 10. runs one preset iteration with ``sample_board=True`` (the scan path:
    K1-K3 every step, K5, K6, and the plain eval loop through K1), with
    every launch count asserted and sampled boards checked;
-11. prints the card, a JSON line of per-kernel numbers, and the final line
+11. runs the CNN preset ``CNN_lr-0.0003`` (``[cnn]``, 9x9, full width; see
+   ``cnn_phase``): its gates, its forward at trained magnitudes against
+   float64 on the CPU, its gathered opponent bank against the dense one,
+   the bf16 bank layer by layer against the CPU's emulation with a float32
+   control, the grouped conv against unfold + bmm, then three
+   ``Trainer.fit`` iterations on the scan path (K1, K5; K2-K4 and K6 at 0
+   launches, asserted), the BatchNorm statistics moving in every sweep, a
+   bitwise resume, the stage split, the sweep's and the rollout's float32
+   roofline and a profiled iteration;
+12. prints the card, a JSON line of per-kernel numbers (with each kernel's
+   launches per CNN iteration), and the final line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
@@ -76,10 +86,15 @@ Philox streams at the benchmark's shape), K1 (7x7, 256 games), K5 (the
 preset's T = 128, B = 256, on the rollout record's strided lanes), K3
 and K2 (7x7, 256 games): with ROOT an unpacked older tree, the same measurement of
 the kernels before a change.
+
+    python3 chip_smoke.py --cnn-only
+
+only builds the kernels and runs the ``[cnn]`` phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -152,6 +167,20 @@ PRESET = "7x7_MLP-default_lr-0.0003"
 K6_STEP_REL = 1e-5  # one grad step: max abs error / max abs value, each of p, m, v, stats
 K6_SWEEP_REL = 1e-4  # a multi-step sweep: the same, with stats averaged over the steps
 OTHER_MLPS = ("MLP-deep", "MLP-wide-deep")  # the other presets' towers that take K6
+CNN_PRESET = "CNN_lr-0.0003"
+# the CNN's float32 on the card against the same module in float64 on the
+# CPU, and its gathered opponent pass against the dense pass and a
+# selection: the largest error over the largest logit (float32 sums in
+# another order; at trained magnitudes the logits run to 1e5)
+CNN_REL = 1e-5
+CNN_POSITIONS = 512  # boards of the forward check, each after its own number of random plies
+# The CNN's bf16 bank, layer by layer from the same input, against the
+# CPU's emulation: every activation equal but at most this share, each one
+# bf16 ulp apart (a float32 sum in another order across a rounding
+# boundary).  End to end no logit beyond BF16_FLIP_REL of the largest; K4's
+# BF16_FLIP_SHARE of rows does not apply: a flipped activation moves the
+# next layer's sums, which flip others, through five rounded layers.
+CNN_BF16_LAYER_SHARE = 1e-3
 
 
 def fail(msg: str):
@@ -541,8 +570,14 @@ def rel_errs(got, want):
 
 def device_profile(fn):
     """Run ``fn`` once under ``torch.profiler``; returns (wall us, device-busy
-    us, top kernels by device time, top host ops by self CPU time)."""
+    us, top kernels by device time, top host ops by self CPU time).  Busy
+    time is the union of the device's own events' intervals (kernels,
+    copies): a host op that launches a library's kernels
+    (``aten::cudnn_convolution``) carries their device time too, and cuDNN
+    runs some convolutions as kernels that overlap, so a sum would count
+    time twice."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -553,15 +588,19 @@ def device_profile(fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     device_us, host_us = {}, {}
     for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            device_us[ev.key] = us
-        host_us[ev.key] = ev.self_cpu_time_total
+        if ev.device_type == DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            device_us[ev.key] = us if us is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        else:
+            host_us[ev.key] = ev.self_cpu_time_total
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
     top_host = sorted(host_us.items(), key=lambda kv: -kv[1])[:5]
-    return wall_us, sum(device_us.values()), top, top_host
+    return wall_us, busy, top, top_host
 
 
 def phase_splits(label: str) -> dict:
@@ -653,6 +692,449 @@ def phase_splits(label: str) -> dict:
           f"({total:.4f} ms clocked), {1000 * k6_ms / G:.2f} us per grad step; per step, median "
           "(max) over CTAs: " + profiling.format_split(rows))
     return out
+
+
+def cnn_trained_scale(model, g) -> dict:
+    """A ``CnnPolicy`` state dict at trained magnitudes, on the CPU: conv and
+    dense weights and biases N(0, 0.3^2), BatchNorm scale 1 + N(0, 0.05^2)
+    and bias N(0, 0.05^2), running mean N(0, 0.3^2), variance U(0.5, 1.5)."""
+    import torch
+
+    out = {}
+    for k, v in model.state_dict().items():
+        z = torch.randn(v.shape, generator=g)
+        if k.endswith(".bn.var"):
+            out[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif k.endswith(".bn.mean"):
+            out[k] = 0.3 * z
+        elif k.endswith(".bn.scale"):
+            out[k] = 1.0 + 0.05 * z
+        elif k.endswith(".bn.bias"):
+            out[k] = 0.05 * z
+        else:
+            out[k] = 0.3 * z
+    return out
+
+
+def random_positions(topo, n_pos: int, max_plies: int, g, dev):
+    """``n_pos`` mover-frame boards on ``dev``, board b after its own number
+    of random legal plies, uniform in [0, ``max_plies``) (a game that ends
+    first keeps its final board)."""
+    import torch
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.ops import masked
+
+    state = hex_env.initial_state(topo, n_pos, dev)
+    stop = torch.randint(0, max_plies, (n_pos,), generator=g).to(dev)
+    out = torch.zeros((n_pos, topo.n, topo.n), dtype=torch.int8, device=dev)
+    zeros = torch.zeros((n_pos, topo.num_cells), device=dev)
+    for t in range(max_plies):
+        out = torch.where((stop == t)[:, None, None], hex_env.observe(topo, state), out)
+        legal = hex_env.legal_mask(topo, state)
+        a = masked.sample(masked.draw_bits(g, legal.shape, dev), zeros, legal)
+        state, _ = hex_env.step(topo, state, a)
+    return out
+
+
+def unfold_conv_stack(filters, obs, n: int):
+    """The gathered conv stack as ``F.unfold`` + ``torch.bmm``: the same
+    function as ``models/cnn.gathered_conv_stack`` (one grouped conv per
+    layer), the other way of computing it, timed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    B = obs.shape[0]
+    x = obs.to(torch.float32).reshape(B, 1, n, n)
+    for w, b in filters:
+        cout = w.shape[0] // B
+        y = torch.baddbmm(b.reshape(B, cout, 1), w.reshape(B, cout, -1),
+                          F.unfold(x, 3, padding=1))
+        x = torch.relu(y).reshape(B, cout, n, n)
+    return x.permute(0, 2, 3, 1).reshape(B, -1)
+
+
+def bf16_layer_check(got, want):
+    """(share of activations that differ, True if each difference is at most
+    one bf16 ulp, or a ReLU zero against a value within float32 rounding of
+    zero)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    diff = (got - want).abs()
+    ok = diff <= 2.0**-7 * got.abs().maximum(want.abs()) + 1e-6 * float(want.abs().max())
+    return float((diff > 0).double().mean()), bool(ok.all())
+
+
+def cnn_phase(dev) -> dict:
+    """[cnn]: the CNN preset ``CNN_lr-0.0003`` (9x9, full width) on the card.
+
+    Its path takes no kernel of its own: the scan rollout with the env step
+    K1 three times a step, GAE K5 once an iteration, the plain eval loop
+    with K1, and the model's convolutions and products through cuDNN and
+    cuBLAS in full float32 (the package's ``models/cnn.full_float32``; the
+    phase restores cuDNN's defaults, TF32 allowed and autotuning on, so
+    nothing but that scope keeps it there).  Gates; the forward against
+    float64 on the CPU; the gathered bank against the dense one, the bf16
+    bank against the CPU's emulation with a float32 control, the two ways
+    of computing the gathered convs; then ``Trainer.fit`` for three
+    iterations with the launches of each asserted, the BatchNorm statistics
+    moving in each sweep, a bitwise resume from the iteration-2 checkpoint,
+    the split by stage and a profiled iteration.  Returns the launches of
+    each kernel per iteration, as asserted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from hex_gym_env_tpu_torch.core.topology import get_topology
+    from hex_gym_env_tpu_torch.experiments import get_config
+    from hex_gym_env_tpu_torch.models import cnn
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+    from hex_gym_env_tpu_torch.train.bank import sample_opponents
+    from hex_gym_env_tpu_torch.train.rollout import SelfplayRunner
+    from hex_gym_env_tpu_torch.train.selfplay import SelfplayPPO
+    from hex_gym_env_tpu_torch.train.trainer import Trainer
+    from hex_gym_env_tpu_torch.utils import roofline
+    from hex_gym_env_tpu_torch.utils.metrics import MetricsLogger
+
+    t_phase = time.perf_counter()
+
+    def stamp(section):
+        print(f"[cnn] {section} done, {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = True, True
+    tcfg0 = get_config(CNN_PRESET)
+    cfg, pcfg = tcfg0.selfplay, tcfg0.ppo
+    topo = get_topology(cfg.board_size)
+    n, F, Bn, T, P = topo.n, topo.num_cells, cfg.n_envs, pcfg.n_steps, cfg.buffer_size
+    print(f"[cnn] {CNN_PRESET}: {n}x{n}, n_envs {Bn}, n_steps {T}, minibatch "
+          f"{pcfg.minibatch_size}, {pcfg.n_epochs} epochs, pool {P} + best, "
+          f"{cfg.eval_episodes} eval episodes; cuDNN {torch.backends.cudnn.version()}, global "
+          "cudnn.allow_tf32 True and benchmark True in this phase")
+
+    # ---- gates: the scan path and the autograd sweep; the kernels refuse a CNN
+    algo0 = SelfplayPPO(tcfg0, device=dev)
+    model = algo0.model
+    if (not isinstance(model, cnn.CnnPolicy) or algo0.runner.fused_pol is not None
+            or algo0.runner.pol is not None or algo0.evaluator.fused_pol is not None
+            or not algo0.update_fn.__qualname__.startswith("make_update_fn")):
+        fail("the CNN preset does not take the scan path, the plain eval and the autograd sweep")
+    for bad in (dict(policy_impl="pallas"), dict(rollout_impl="fused")):
+        try:
+            SelfplayRunner(topo, model, dataclasses.replace(cfg, **bad), device=dev)
+        except ValueError:
+            continue
+        fail(f"a CNN runner with {bad} does not raise")
+    try:
+        SelfplayPPO(dataclasses.replace(tcfg0, ppo=dataclasses.replace(pcfg, update_impl="pallas")),
+                    device=dev)
+        fail("a CNN with update_impl='pallas' does not raise")
+    except ValueError:
+        pass
+
+    stamp("gates")
+
+    # ---- the forward at trained magnitudes against float64 on the CPU ----------
+    g = torch.Generator().manual_seed(77)
+    sd = cnn_trained_scale(model, g)
+    p_dev = {k: v.to(dev) for k, v in sd.items()}
+    p64 = {k: v.double() for k, v in sd.items()}
+    obs = random_positions(topo, CNN_POSITIONS, F, g, dev)
+    fwd = {}
+    for train in (False, True):
+        got = torch.func.functional_call(model, p_dev, (obs,), {"train": train})
+        ref = torch.func.functional_call(model, p64, (obs.cpu(),), {"train": train})
+        scale = float(ref[0].abs().max())
+        errs = [max_err(got[0].cpu().double(), ref[0]) / scale,
+                max_err(got[1].cpu().double(), ref[1]) / float(ref[1].abs().max())]
+        if train:
+            errs.append(max(max_err(got[2][k].cpu().double(), ref[2][k])
+                            / float(ref[2][k].abs().max()) for k in ref[2]))
+        if max(errs) > CNN_REL:
+            fail(f"CNN forward (train={train}) against float64: relative errors {errs} > {CNN_REL}")
+        fwd[train] = (errs, scale)
+    print(f"[cnn] forward on {CNN_POSITIONS} boards at trained magnitudes against float64 on "
+          "the CPU, errors over the largest value (logits, values[, running stats]): "
+          + "; ".join(f"train={t} {', '.join(f'{e:.3g}' for e in errs)} (logits up to {sc:.4g})"
+                      for t, (errs, sc) in fwd.items()))
+
+    stamp("forward")
+
+    # ---- the opponent bank: gathered against dense, bf16, the conv variants -----
+    members = [cnn_trained_scale(model, g) for _ in range(P)]
+    stacked = {k: torch.stack([m[k] for m in members]).to(dev) for k in sd}
+    best = {k: v.to(dev) for k, v in cnn_trained_scale(model, g).items()}
+    boards = obs[:Bn].contiguous()
+    use_best, opp_idx = sample_opponents(g, P, Bn, cfg.best_prob, dev)
+    ar = torch.arange(Bn, device=dev)
+    gathered = cnn.gathered_bank_logits(model, stacked, best, use_best, opp_idx, boards)
+    best_rows = torch.func.functional_call(model, best, (boards,))[0]
+    dense = torch.where(use_best[:, None], best_rows,
+                        cnn.bank_logits(model, stacked, boards)[opp_idx.long(), ar])
+    scale = float(dense.abs().max())
+    gd_rel = max_err(gathered, dense) / scale
+    paired = cnn.bank_logits(model, stacked, obs[:P], paired=True)
+    diag = cnn.bank_logits(model, stacked, obs[:P])[torch.arange(P), torch.arange(P)]
+    pd_rel = max_err(paired, diag) / float(diag.abs().max())
+    if gd_rel > CNN_REL or pd_rel > CNN_REL:
+        fail(f"CNN bank: gathered vs dense {gd_rel}, paired vs dense {pd_rel} > {CNN_REL}")
+    print(f"[cnn bank] B {Bn}, {P} members + best, {int(use_best.sum())} rows on the best: "
+          f"gathered against dense and a selection {gd_rel:.3g} of the largest logit "
+          f"({scale:.4g}); the eval's paired pass against dense {pd_rel:.3g}")
+
+    filters = cnn.gathered_filters(cnn.fold_bn(stacked), cnn.fold_bn(best), use_best, opp_idx)
+    h = boards.to(torch.float32).reshape(1, Bn, n, n)
+    shares, refused = [], []
+    for w, b in filters:
+        want = cnn.conv_relu(h.cpu(), w.cpu(), b.cpu(), Bn, bf16=True)
+        with cnn.full_float32():
+            got = cnn.conv_relu(h, w, b, Bn, bf16=True)
+            got32 = cnn.conv_relu(h, w, b, Bn, bf16=False)
+        share, ok = bf16_layer_check(got, want)
+        if not ok or share > CNN_BF16_LAYER_SHARE:
+            fail(f"CNN bf16 bank layer {len(shares)}: {share:.3g} of the activations differ "
+                 f"(at most {CNN_BF16_LAYER_SHARE}), within one bf16 ulp: {ok}")
+        share32, ok32 = bf16_layer_check(got32, want)
+        refused.append(share32 > CNN_BF16_LAYER_SHARE or not ok32)
+        shares.append((share, share32))
+        h = want.to(dev)
+    if not all(refused):
+        fail("the CNN bf16 layer check passes the float32 layer in the bf16 one's place")
+    cpu = {k: v.cpu() for k, v in stacked.items()}
+    want = cnn.gathered_bank_logits(model, cpu, {k: v.cpu() for k, v in best.items()},
+                                    use_best.cpu(), opp_idx.cpu(), boards.cpu(), bf16=True)
+    got = cnn.gathered_bank_logits(model, stacked, best, use_best, opp_idx, boards, bf16=True)
+    row = (got.cpu() - want).abs().amax(-1) / float(want.abs().max())
+    ctrl = float((gathered.cpu() - want).abs().max()) / float(want.abs().max())
+    if float(row.max()) > BF16_FLIP_REL:
+        fail(f"CNN bf16 bank logits: max error {float(row.max())} of the largest logit "
+             f"(at most {BF16_FLIP_REL})")
+    print("[cnn bank bf16] gathered, layer by layer against the CPU's emulation: share of "
+          "activations one bf16 ulp apart " + ", ".join(f"{a:.3g}" for a, _ in shares)
+          + "; the float32 layer in its place: " + ", ".join(f"{c:.3g}" for _, c in shares)
+          + f" (refused); logits: max error {float(row.max()):.3g} of the largest, "
+          f"{float((row > 2e-5).double().mean()):.2%} of rows beyond 2e-5 of it; the float32 "
+          f"bank against the bf16 emulation {ctrl:.3g}")
+
+    grouped = cnn.gathered_conv_stack(model, filters, boards)
+    with cnn.full_float32():
+        unfolded = unfold_conv_stack(filters, boards, n)
+    uf_rel = max_err(unfolded, grouped) / float(grouped.abs().max())
+    if uf_rel > CNN_REL:
+        fail(f"the unfold + bmm conv stack differs from the grouped conv by {uf_rel}")
+
+    def unfold_scoped():
+        with cnn.full_float32():
+            return unfold_conv_stack(filters, boards, n)
+
+    times = {
+        "grouped conv stack (kept)": cuda_ms(lambda: cnn.gathered_conv_stack(model, filters,
+                                                                           boards), 20),
+        "unfold + bmm conv stack": cuda_ms(unfold_scoped, 20),
+        "gathered opponent pass": cuda_ms(lambda: cnn.gathered_bank_logits(
+            model, stacked, best, use_best, opp_idx, boards), 20),
+        "gathered opponent pass, bf16": cuda_ms(lambda: cnn.gathered_bank_logits(
+            model, stacked, best, use_best, opp_idx, boards, bf16=True), 20),
+        "dense bank pass": cuda_ms(lambda: cnn.bank_logits(model, stacked, boards), 5),
+        "agent forward": cuda_ms(lambda: torch.func.functional_call(model, p_dev, (boards,)), 20),
+    }
+    print(f"[cnn bank] ms per call at B {Bn} (CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f"; unfold + bmm against the grouped conv {uf_rel:.3g}")
+    # the other ways measured once: the grouped conv in channels_last and
+    # with cuDNN's autotuning (whose pick, by timing, can change from run to
+    # run and with it the sums' order), and a grad step at the sweep's
+    # minibatch in TF32 against full float32
+    def with_flags(fn, **flags):
+        def run():
+            with torch.backends.cudnn.flags(enabled=True, **flags):
+                return fn()
+        return run
+
+    filters_cl = [(w.contiguous(memory_format=torch.channels_last), b) for w, b in filters]
+    x_cl = boards.to(torch.float32).reshape(1, Bn, n, n).contiguous(
+        memory_format=torch.channels_last)
+
+    def grouped_cl():
+        x = x_cl
+        for w, b in filters_cl:
+            x = cnn.conv_relu(x, w, b, Bn)
+        return x
+
+    strict = dict(benchmark=False, deterministic=True, allow_tf32=False)
+    mb_obs = random_positions(topo, pcfg.minibatch_size, F, g, dev)
+    keys = [k for k, _ in model.named_parameters()]
+
+    def grad_step():
+        leaves = {k: p_dev[k].detach().requires_grad_() for k in keys}
+        logits, value, _ = torch.func.functional_call(model, {**p_dev, **leaves}, (mb_obs,),
+                                                      {"train": True})
+        return torch.autograd.grad(logits.square().mean() + value.square().mean(),
+                                   list(leaves.values()))
+
+    @contextlib.contextmanager
+    def tf32_scope():  # the package's scope, TF32 allowed (a measurement only)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=True):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                yield
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+
+    variants = {
+        "grouped conv stack, channels_last": cuda_ms(with_flags(grouped_cl, **strict), 20),
+        "grouped conv stack, cuDNN autotuning": cuda_ms(with_flags(
+            lambda: cnn.gathered_conv_stack(model, filters, boards), benchmark=True,
+            deterministic=True, allow_tf32=False), 20),
+        f"grad step at B {pcfg.minibatch_size}, full float32 (kept)": cuda_ms(grad_step, 5),
+    }
+    scope, cnn.full_float32 = cnn.full_float32, tf32_scope
+    try:
+        variants[f"grad step at B {pcfg.minibatch_size}, TF32"] = cuda_ms(grad_step, 5)
+    finally:
+        cnn.full_float32 = scope
+    print("[cnn variants] ms per call (CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in variants.items()))
+    for name, fn in (("gathered opponent pass", lambda: cnn.gathered_bank_logits(
+            model, stacked, best, use_best, opp_idx, boards)),
+            ("agent forward", lambda: torch.func.functional_call(model, p_dev, (boards,)))):
+        wall_us, busy, top, _ = device_profile(fn)
+        print(f"[cnn profile] one {name} at B {Bn}: wall {wall_us:.1f} us, device busy "
+              f"{busy:.1f} us; top kernels (us): " + "; ".join(f"{k[:70]} {v:.1f}" for k, v in top))
+
+    stamp("bank")
+
+    # ---- training: Trainer.fit, three iterations ---------------------------------
+    per_iter = Bn * T
+    work = tempfile.mkdtemp(prefix="chip_smoke_cnn_")
+    tcfg = get_config(CNN_PRESET, total_timesteps=3 * per_iter, checkpoint_every=2 * per_iter,
+                      log_dir=os.path.join(work, "log"), model_dir=os.path.join(work, "models"))
+    trainer = Trainer(tcfg, device=dev)
+    algo = trainer.algo
+    stage_events = {"rollout": [], "gae": [], "sweep": [], "eval + pool update": []}
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = fn(*args, **kwargs)
+            end.record()
+            stage_events[stage].append((start, end))
+            return res
+        return run
+
+    bn_keys = [k for k, _ in model.named_buffers()]
+    moved = []
+    update = algo.update_fn
+
+    def update_spy(params, *args, **kwargs):
+        res = update(params, *args, **kwargs)
+        moved.append(all(not torch.equal(res[0][k], params[k]) for k in bn_keys))
+        return res
+
+    algo.update_fn = update_spy
+    algo.runner.run = timed("rollout", algo.runner.run)
+    algo.gae_fn = timed("gae", algo.gae_fn)
+    algo.update_fn = timed("sweep", algo.update_fn)
+    algo.evaluator.eval_and_update = timed("eval + pool update", algo.evaluator.eval_and_update)
+    marks = []
+    train_step = algo.train_step
+
+    def marked_train_step(state):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), dict(cuda_lib.launches)))
+        return train_step(state)
+
+    algo.train_step = marked_train_step
+    cuda_lib.reset_launches()
+    state_a = trainer.fit()
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), dict(cuda_lib.launches)))
+    want = dict.fromkeys(cuda_lib.KERNELS, 0)
+    want.update(k1_step=3 * T + 1 + 2 * (F // 2 + 2), k5_gae=1)
+    for i in range(3):
+        got = {k: marks[i + 1][1][k] - marks[i][1][k] for k in cuda_lib.KERNELS}
+        if got != want:
+            fail(f"CNN iteration {i + 1} launched {got}, expected {want}")
+    if moved != [True] * 3:
+        fail(f"the BatchNorm running statistics did not move in every sweep: {moved}")
+    with open(os.path.join(tcfg.log_dir, tcfg.model_name, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    eval_steps = [r["step"] for r in recs if "eval/mean_reward" in r]
+    if eval_steps != [per_iter, 2 * per_iter, 3 * per_iter]:
+        fail(f"CNN eval did not fire every iteration: {eval_steps}")
+    if not all(np.isfinite(v) for r in recs for v in r.values()):
+        fail("non-finite logged CNN metrics")
+    if not all(bool(torch.isfinite(v).all()) for v in state_a.params.values()):
+        fail("non-finite CNN parameters after training")
+    if trainer._ckpt_mgr().latest_step() != 2 * per_iter:
+        fail("no CNN checkpoint after iteration 2")
+    trainer_r = Trainer(tcfg, logger=MetricsLogger(tcfg.log_dir, "resumed"), device=dev)
+    state_r = trainer_r.fit(trainer_r.resume())
+    for k in state_a.params:
+        if not torch.equal(state_r.params[k], state_a.params[k]):
+            fail(f"the resumed CNN iteration 3 differs from the uninterrupted one at {k}")
+        if not torch.equal(state_r.bank.params[k], state_a.bank.params[k]):
+            fail(f"the resumed CNN iteration 3's bank differs at {k}")
+    iter_s = [marks[i + 1][0] - marks[i][0] for i in range(3)]
+    stage_ms = {k: [round(a.elapsed_time(b), 3) for a, b in v] for k, v in stage_events.items()}
+    print(f"[cnn train] 3 iterations of {per_iter} transitions; launches per iteration {want}; "
+          f"eval at steps {eval_steps}; running statistics moved in every sweep; resume from "
+          "iteration 2 -> iteration 3 params, running statistics and bank bitwise equal")
+    print(f"[cnn train] s per iteration {[round(x, 4) for x in iter_s]}; "
+          f"{per_iter / (sum(iter_s[1:]) / 2):.0f} transitions/s (iterations 2-3)")
+    print("[cnn train] stage ms of iterations 1-3 (CUDA events): "
+          + "; ".join(f"{k} {v}" for k, v in stage_ms.items()))
+    last = recs[-2]
+    print("[cnn train] iteration 3: " + ", ".join(
+        f"{k} {last[k]:.4g}" for k in ("rollout/ep_rew_mean", "train/policy_loss",
+                                        "train/value_loss", "train/entropy", "eval/score")))
+    G = (per_iter // pcfg.minibatch_size) * pcfg.n_epochs
+    sweep_flops = 3.0 * G * pcfg.minibatch_size * roofline.cnn_forward_flops(F)
+    sweep_s = float(np.mean(stage_ms["sweep"][1:])) / 1e3
+    roll_flops = per_iter * (roofline.cnn_forward_flops(F) + roofline.cnn_gathered_bank_flops(F, P))
+    roll_s = float(np.mean(stage_ms["rollout"][1:])) / 1e3
+    for name, fl, sec in (("sweep", sweep_flops, sweep_s), ("rollout", roll_flops, roll_s)):
+        bound = fl / roofline.PEAK_FLOPS_FP32
+        print(f"[cnn roofline] {name}: {fl / 1e12:.3f} TFLOP in {sec:.4f} s (iterations 2-3), "
+              f"{fl / sec / 1e12:.3f} TFLOP/s, float32 bound {bound:.4f} s "
+              f"({100 * bound / sec:.1f}% of it)"
+              + (f"; {1e3 * sec / T:.3f} ms per rollout step" if name == "rollout" else ""))
+
+    stamp("training")
+
+    # ---- one profiled iteration ----------------------------------------------------
+    def iteration():
+        st, _ = algo.train_step(state_a)
+        algo.eval_step(st)
+
+    iteration()
+    wall_us, busy, top, top_host = device_profile(iteration)
+    print(f"[cnn profile] one iteration (train + eval): wall {wall_us:.1f} us, device busy "
+          f"{busy:.1f} us ({100 * busy / wall_us:.1f}%); top kernels (us): "
+          + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
+    print("[cnn profile] top host ops by self CPU time (us): "
+          + "; ".join(f"{k[:40]} {v:.1f}" for k, v in top_host))
+    stamp("profile")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark = flags
+    return want
+
+
+def cnn_only() -> int:
+    import torch
+
+    if not preflight(torch):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_lib.build(verbose=False)
+    cuda_lib.lib()
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    cnn_phase(torch.device("cuda"))
+    return 0
 
 
 def preflight(torch, root: str = REPO) -> bool:
@@ -1517,7 +1999,12 @@ def main() -> int:
     print("[profile] top host ops by self CPU time (us): "
           + "; ".join(f"{k[:40]} {v:.1f}" for k, v in top_host))
 
-    # ---- 11. report ----------------------------------------------------------------------
+    # ---- 11. the CNN preset (the scan path through K1, K5; the model on cuDNN/cuBLAS) -----
+    t0 = time.perf_counter()
+    cnn_counts = cnn_phase(dev)
+    print(f"[cnn] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. report ----------------------------------------------------------------------
     rollout_src = "hex_gym_env_tpu_torch/csrc/hex_kernels.cu"
     learner_src = "hex_gym_env_tpu_torch/csrc/learner_kernels.cu"
     meta = {
@@ -1544,6 +2031,7 @@ def main() -> int:
             "ms": k["ms"], "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
+            "cnn_launches": cnn_counts[name],
             **({"image_device_ms": k["image_device_ms"]} if "image_device_ms" in k else {}),
         })
     smi = subprocess.run(
@@ -1562,4 +2050,6 @@ if __name__ == "__main__":
         sys.exit(split_only(sys.argv[2]))
     if len(sys.argv) == 4 and sys.argv[1] == "--env-kernels":
         sys.exit(env_only(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--cnn-only":
+        sys.exit(cnn_only())
     sys.exit(main())

@@ -3,9 +3,12 @@
 The JAX package keeps MLP parameters as flax trees,
 ``{"params": {"pi_0": {"kernel", "bias"}, ..., "action_head": ...,
 "value_head": ...}}``, with Dense kernels laid out (in, out).  ``nn.Linear``
-weights are (out, in).  These helpers take such trees (and states) as numpy
-arrays — the caller converts with ``np.asarray`` — so this package never
-imports JAX.
+weights are (out, in).  A CNN's tree adds ``params/<layer>/Conv_0/{kernel,
+bias}`` (kernels (3, 3, Cin, Cout); ``nn.Conv2d``'s are (Cout, Cin, 3, 3)),
+``params/<layer>/BatchNorm_0/{scale, bias}``, ``params/features`` and a
+``batch_stats/<layer>/BatchNorm_0/{mean, var}`` collection.  These helpers
+take such trees (and states) as numpy arrays — the caller converts with
+``np.asarray`` — so this package never imports JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from hex_gym_env_tpu_torch.core.state import HexState
+from hex_gym_env_tpu_torch.models.cnn import CONV_LAYERS, CnnPolicy
 from hex_gym_env_tpu_torch.models.mlp import MlpPolicy
 
 _FLAX_HEADS = (("action_head", "action_head"), ("value_head", "value_head"))
@@ -30,8 +34,9 @@ def _n_layers(tree: Mapping, tower: str) -> int:
 
 
 def _flax_entries(tree: Mapping):
-    """(state-dict key, flax leaf path) pairs of an MLP tree."""
-    out = []
+    """(state-dict key, flax leaf path) pairs of the Dense layers of a
+    tree (a CNN's ``features`` first)."""
+    out = [("features", "features")] if "features" in tree else []
     for tower in ("pi", "vf"):
         for i in range(_n_layers(tree, tower)):
             out.append((f"{tower}.{i}", f"{tower}_{i}"))
@@ -39,33 +44,63 @@ def _flax_entries(tree: Mapping):
     return out
 
 
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(x, np.float32)))
+
+
 def flax_state_dict(params_np: Mapping) -> dict[str, torch.Tensor]:
-    """A flax MLP tree (numpy leaves) as an ``MlpPolicy`` state dict.
+    """A flax MLP or CNN tree (numpy leaves) as an ``MlpPolicy`` or
+    ``CnnPolicy`` state dict.  A CNN (a tree with ``conv_in``) given as its
+    whole variables also carries ``batch_stats`` across; given its
+    ``params`` alone (as optax's moments are), the result holds only the
+    trained parameters.
 
     Leading axes are kept, so this is also the stacked variant: a bank whose
     leaves have a leading P axis gives the stacked tensors of
     ``OpponentBank.params``."""
     tree = _inner(params_np)
     sd = {}
+    if "conv_in" in tree:
+        stats = params_np.get("batch_stats") if "params" in params_np else None
+        for name in CONV_LAYERS:
+            conv, bn = tree[name]["Conv_0"], tree[name]["BatchNorm_0"]
+            # (..., 3, 3, Cin, Cout) -> (..., Cout, Cin, 3, 3)
+            kernel = np.asarray(conv["kernel"], np.float32)
+            nd = kernel.ndim
+            axes = tuple(range(nd - 4)) + (nd - 1, nd - 2, nd - 4, nd - 3)
+            sd[f"{name}.conv.weight"] = _tensor(np.transpose(kernel, axes))
+            sd[f"{name}.conv.bias"] = _tensor(conv["bias"])
+            sd[f"{name}.bn.scale"] = _tensor(bn["scale"])
+            sd[f"{name}.bn.bias"] = _tensor(bn["bias"])
+            if stats is not None:
+                sd[f"{name}.bn.mean"] = _tensor(stats[name]["BatchNorm_0"]["mean"])
+                sd[f"{name}.bn.var"] = _tensor(stats[name]["BatchNorm_0"]["var"])
     for key, name in _flax_entries(tree):
         kernel = np.asarray(tree[name]["kernel"], np.float32)
-        bias = np.asarray(tree[name]["bias"], np.float32)
-        sd[f"{key}.weight"] = torch.from_numpy(np.array(np.swapaxes(kernel, -1, -2)))
-        sd[f"{key}.bias"] = torch.from_numpy(np.array(bias))
+        sd[f"{key}.weight"] = _tensor(np.swapaxes(kernel, -1, -2))
+        sd[f"{key}.bias"] = _tensor(tree[name]["bias"])
     return sd
 
 
-def flax_to_torch(params_np: Mapping, activation: str = "tanh") -> MlpPolicy:
-    """The port's ``MlpPolicy`` (on the CPU) holding a flax MLP's weights.
+def flax_to_torch(params_np: Mapping, activation: str = "tanh") -> MlpPolicy | CnnPolicy:
+    """The port's ``MlpPolicy`` or ``CnnPolicy`` (on the CPU) holding a flax
+    model's weights (a CNN's given as its whole variables, ``batch_stats``
+    included).
 
-    Layer widths are read off the kernels; the activation cannot be, so it
-    is given ("tanh" for MLP-default, "relu" for the deep families)."""
+    Layer widths are read off the kernels; an MLP's activation cannot be,
+    so it is given ("tanh" for MLP-default, "relu" for the deep families;
+    the CNN's is ReLU)."""
     tree = _inner(params_np)
     pi = [np.shape(tree[f"pi_{i}"]["kernel"])[1] for i in range(_n_layers(tree, "pi"))]
     vf = [np.shape(tree[f"vf_{i}"]["kernel"])[1] for i in range(_n_layers(tree, "vf"))]
     n_actions = np.shape(tree["action_head"]["kernel"])[1]
-    model = MlpPolicy(n_actions, pi, vf, activation)
-    model.load_state_dict(flax_state_dict(tree))
+    if "conv_in" in tree:
+        filters = np.shape(tree["conv_in"]["Conv_0"]["kernel"])[-1]
+        features_dim = np.shape(tree["features"]["kernel"])[1]
+        model = CnnPolicy(n_actions, filters, features_dim, pi, vf)
+    else:
+        model = MlpPolicy(n_actions, pi, vf, activation)
+    model.load_state_dict(flax_state_dict(params_np))
     return model
 
 
@@ -73,8 +108,9 @@ def optax_adam_to_torch(opt_state_np):
     """The JAX package's optimizer state ``(clip_state, (ScaleByAdamState,
     lr_state))`` (``optax.chain(clip_by_global_norm, adam)``), with numpy
     leaves, as the port's ``train/ppo.AdamState``: the step count and the
-    two moments as ``MlpPolicy`` state dicts, so both packages can start a
-    sweep from the same moments and count."""
+    two moments as state dicts of the trained parameters (a CNN's moments
+    cover its ``params``, not its ``batch_stats``), so both packages can
+    start a sweep from the same moments and count."""
     from hex_gym_env_tpu_torch.train.ppo import AdamState
 
     adam = opt_state_np[1][0]

@@ -3,14 +3,16 @@
 The counterpart of the JAX package's ``train/bank.py``.  The reference keeps
 a Python list of SB3 models plus scores (``minihex/SelfplayWrapper.py:39-67``)
 and mutates it from the eval callback (``set_opponent_model``, ``:125-137``).
-Here the bank is a dict of *stacked* parameter snapshots (``MlpPolicy``
-state-dict names, leading axis = pool slot), a scores vector and the
-designated best snapshot.
+Here the bank is a dict of *stacked* parameter snapshots (the policy's
+state-dict names, leading axis = pool slot; a CNN's BatchNorm statistics
+ride with its weights), a scores vector and the designated best snapshot.
 
 A zero parameter snapshot plays exactly the reference's ``BaseRandomPolicy``
 (``SelfplayWrapper.py:16-24``): zero weights give constant logits, and the
 masked categorical over constant logits is uniform over legal moves.  So a
-fresh bank of zeros is the reference's initial pool of random policies.
+fresh bank of zeros is the reference's initial pool of random policies.  A
+zero CNN snapshot has BatchNorm scale 0 and running variance 0, which folds
+to zero filters (``0 / sqrt(0 + eps)``), not NaN, as in the JAX package.
 """
 
 from __future__ import annotations

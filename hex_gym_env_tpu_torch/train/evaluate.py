@@ -19,8 +19,8 @@ N^2 // 2 + 2 agent/opponent move pairs covers any game (finished games
 freeze).  Where the whole-rollout kernel resolves (``rollout_kernel.resolve``)
 the eval pass is the opening move through the env step (K1 on the card) and
 then one K4 launch in ``eval_mode``; configs that pin the scan/lax paths,
-``sample_board`` (episodes start from random mid-game boards) and
-``symmetric_eval`` take the plain loop.
+a CNN, ``sample_board`` (episodes start from random mid-game boards) and
+``symmetric_eval`` take the plain loop (the env step K1 on the card).
 
 Seat protocol: under ``seat_mode="per_episode"`` each eval episode draws a
 fresh agent seat.  Under ``seat_mode="fixed_random"`` eval episode ``i``
@@ -38,6 +38,7 @@ import torch
 from hex_gym_env_tpu_torch.core import env as hex_env
 from hex_gym_env_tpu_torch.core import random_board
 from hex_gym_env_tpu_torch.core.topology import HexTopology
+from hex_gym_env_tpu_torch.models.cnn import CnnPolicy, bank_logits
 from hex_gym_env_tpu_torch.models.mlp import ACTIVATIONS
 from hex_gym_env_tpu_torch.ops import masked
 from hex_gym_env_tpu_torch.ops import rollout_kernel
@@ -106,9 +107,16 @@ class Evaluator:
         self.fused_pol = rollout_kernel.resolve(model, cfg)
 
     def _opponent_move(self, served, st, generator, active):
+        """Served member i plays episode i: an MLP's towers as batched
+        products, a CNN's as one grouped conv per layer with BatchNorm
+        folded (``models/cnn.bank_logits(..., paired=True)``, float32)."""
         topo = self.topo
         obs_f = hex_env.observe(topo, st).reshape(st.batch_size, -1).to(torch.float32)
-        logits = paired_pi_logits(served, len(self.model.pi_layers), self.model.activation, obs_f)
+        if isinstance(self.model, CnnPolicy):
+            logits = bank_logits(self.model, served, obs_f, paired=True)
+        else:
+            logits = paired_pi_logits(served, len(self.model.pi_layers), self.model.activation,
+                                      obs_f)
         legal = hex_env.legal_mask(topo, st)
         a = masked.sample(masked.draw_bits(generator, legal.shape, self.device), logits, legal)
         return self.step(topo, st, a, active=active)

@@ -12,20 +12,26 @@ adam(eps=1e-5))`` written out here:
 - ``adam_update``: ``scale_by_adam(b1=0.9, b2=0.999, eps)`` with a carried
   ``count`` and the update ``-lr * m_hat / (sqrt(v_hat) + eps)``.
 
-The optimizer state is an ``AdamState`` over ``MlpPolicy`` state-dict
-names.  ``make_update_fn`` is the plain path: autograd through
-``torch.func.functional_call``, one minibatch at a time.  The fused sweep
-kernel K6 and its twin live in ``ops/ppo_kernel.py``.
+The optimizer state is an ``AdamState`` over the state-dict names of the
+model's trained parameters (``trainable_keys``): a CNN's BatchNorm running
+statistics are buffers, carried but not trained.  ``make_update_fn`` is the
+plain path: autograd through ``torch.func.functional_call``, one minibatch
+at a time; a model with buffers runs with ``train=True`` there, and its new
+running statistics carry from minibatch to minibatch and out of the sweep,
+as the JAX package's ``batch_stats`` do.  The fused sweep kernel K6 and its
+twin live in ``ops/ppo_kernel.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from hex_gym_env_tpu_torch.models.cnn import CnnPolicy, full_float32
 from hex_gym_env_tpu_torch.ops import masked
 from hex_gym_env_tpu_torch.utils.config import PPOConfig
 
@@ -74,8 +80,15 @@ class AdamState:
 
 
 def init_adam(params: Params) -> AdamState:
+    """Zero moments over ``params`` (the trained ones: ``trainable_keys``)."""
     zeros = {k: torch.zeros_like(v) for k, v in params.items()}
     return AdamState(count=0, mu=zeros, nu={k: v.clone() for k, v in zeros.items()})
+
+
+def trainable_keys(model) -> tuple:
+    """The state-dict names of ``model``'s trained parameters; the rest of
+    its state dict (a CNN's BatchNorm statistics) are buffers."""
+    return tuple(name for name, _ in model.named_parameters())
 
 
 def bias_corrections(count0: int, n_steps: int, device=None) -> torch.Tensor:
@@ -106,9 +119,29 @@ def adam_update(p, g, m, v, bc1, bc2, cfg: PPOConfig):
 
 def make_loss_fn(model, cfg: PPOConfig):
     """The PPO minibatch loss ``loss_fn(params, mb) -> (loss, PPOStats)``."""
+    train_loss = make_train_loss_fn(model, cfg)
 
     def loss_fn(params: Params, mb: PPOBatch):
-        logits, values = torch.func.functional_call(model, params, (mb.obs.to(torch.float32),))
+        return train_loss(params, mb)[:2]
+
+    return loss_fn
+
+
+def make_train_loss_fn(model, cfg: PPOConfig):
+    """The PPO minibatch loss with the model's new buffers:
+    ``loss_fn(params, mb) -> (loss, PPOStats, new_buffers)``.  A model with
+    buffers (a CNN's BatchNorm) runs with ``train=True``, normalising with
+    the minibatch's statistics; ``new_buffers`` are its updated running
+    statistics ({} for an MLP)."""
+    has_buffers = any(True for _ in model.named_buffers())
+
+    def loss_fn(params: Params, mb: PPOBatch):
+        obs = mb.obs.to(torch.float32)
+        if has_buffers:
+            logits, values, new_buffers = torch.func.functional_call(
+                model, params, (obs,), {"train": True})
+        else:
+            (logits, values), new_buffers = torch.func.functional_call(model, params, (obs,)), {}
         log_prob = masked.log_prob(logits, mb.legal, mb.action)
         entropy = masked.entropy(logits, mb.legal)
 
@@ -131,7 +164,7 @@ def make_loss_fn(model, cfg: PPOConfig):
         approx_kl = torch.mean(torch.exp(log_ratio) - 1.0 - log_ratio)
         clip_frac = torch.mean((torch.abs(ratio - 1.0) > cfg.clip_range).to(torch.float32))
         stats = PPOStats(policy_loss, value_loss, -entropy_loss, approx_kl, clip_frac)
-        return loss, PPOStats(*(s.detach() for s in stats))
+        return loss, PPOStats(*(s.detach() for s in stats)), new_buffers
 
     return loss_fn
 
@@ -167,8 +200,15 @@ def make_update_fn(model, cfg: PPOConfig, grad_reduce: Optional[Callable] = None
     ``perms`` (n_epochs, n) replaces the generator's permutations.
     ``grad_reduce`` (optional) is applied to the gradient dict before the
     clip — the data-parallel hook (an all-reduce mean across replicas keeps
-    their parameters bitwise replicated)."""
-    loss_fn = make_loss_fn(model, cfg)
+    their parameters bitwise replicated).
+
+    Only ``trainable_keys(model)`` are differentiated and stepped; the other
+    entries of ``params`` (a CNN's BatchNorm statistics) are replaced by the
+    loss's new buffers after each minibatch.  A CNN's steps run inside
+    ``full_float32``, forward and backward."""
+    loss_fn = make_train_loss_fn(model, cfg)
+    keys = trainable_keys(model)
+    scope = full_float32 if isinstance(model, CnnPolicy) else contextlib.nullcontext
 
     def update(params: Params, opt_state: AdamState, batch: PPOBatch,
                generator: Optional[torch.Generator] = None, perms=None):
@@ -180,20 +220,22 @@ def make_update_fn(model, cfg: PPOConfig, grad_reduce: Optional[Callable] = None
         p = {k: v.detach() for k, v in params.items()}
         mu, nu = dict(opt_state.mu), dict(opt_state.nu)
         stats = []
-        for step, rows in enumerate(idx):
-            mb = PPOBatch(*(x[rows] for x in batch))
-            leaves = {k: v.requires_grad_() for k, v in p.items()}
-            loss, st = loss_fn(leaves, mb)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-            if grad_reduce is not None:
-                grads = grad_reduce(grads)
-            gnorm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-            scale = clip_scale(gnorm, cfg.max_grad_norm)
-            bc1, bc2 = bc[step]
-            for k in p:
-                p[k], mu[k], nu[k] = adam_update(
-                    p[k].detach(), grads[k] * scale, mu[k], nu[k], bc1, bc2, cfg)
-            stats.append(torch.stack(list(st)))
+        with scope():
+            for step, rows in enumerate(idx):
+                mb = PPOBatch(*(x[rows] for x in batch))
+                leaves = {k: p[k].requires_grad_() for k in keys}
+                loss, st, new_buffers = loss_fn(p, mb)
+                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+                if grad_reduce is not None:
+                    grads = grad_reduce(grads)
+                gnorm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+                scale = clip_scale(gnorm, cfg.max_grad_norm)
+                bc1, bc2 = bc[step]
+                for k in keys:
+                    p[k], mu[k], nu[k] = adam_update(
+                        p[k].detach(), grads[k] * scale, mu[k], nu[k], bc1, bc2, cfg)
+                p.update(new_buffers)
+                stats.append(torch.stack(list(st)))
         new_state = AdamState(count=opt_state.count + idx.shape[0], mu=mu, nu=nu)
         return p, new_state, mean_stats(torch.stack(stats))
 

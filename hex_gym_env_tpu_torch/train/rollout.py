@@ -24,8 +24,15 @@ env step K1 (``ops/step_kernel.py``), or the plain model and env where the
 it takes the scan path, where the opponent's opening move on a reset is a
 full bank pass instead of the empty-board table.
 
-Agent parameters are an ``MlpPolicy`` state dict; the model is the skeleton
-the plain path calls them through (``torch.func.functional_call``).
+Agent parameters are a state dict of the model, which is the skeleton the
+plain path calls them through (``torch.func.functional_call``).  The kernel
+passes K2-K4 take plain MLPs; a CNN takes the scan path with the env step
+K1 and the model in PyTorch: the agent with its BatchNorm's running
+statistics, the opponents with BatchNorm folded into their convs, each game
+running only its own opponent's conv stack (``cnn_bank_mode`` "auto" or
+"gathered", ``models/cnn.gathered_bank_logits``) or every member on every
+board and then a selection ("dense", ``models/cnn.bank_logits``), both in
+bf16 under ``rollout_bank_bf16``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from hex_gym_env_tpu_torch.core import env as hex_env
 from hex_gym_env_tpu_torch.core import random_board
 from hex_gym_env_tpu_torch.core.state import HexState
 from hex_gym_env_tpu_torch.core.topology import HexTopology
-from hex_gym_env_tpu_torch.models.mlp import MlpPolicy, stacked_pi_logits
+from hex_gym_env_tpu_torch.models import cnn
+from hex_gym_env_tpu_torch.models.mlp import stacked_pi_logits
 from hex_gym_env_tpu_torch.ops import masked
 from hex_gym_env_tpu_torch.ops import policy_kernel, rollout_kernel
 from hex_gym_env_tpu_torch.train.bank import OpponentBank, sample_opponents
@@ -76,10 +84,15 @@ class SelfplayRunner:
     ``device=None`` means ``cuda`` and raises where there is none; pass
     ``device="cpu"`` to run the plain PyTorch twins."""
 
-    def __init__(self, topo: HexTopology, model: MlpPolicy, cfg: SelfplayConfig, device=None):
+    def __init__(self, topo: HexTopology, model, cfg: SelfplayConfig, device=None):
         self.topo = topo
         self.model = model
         self.cfg = cfg
+        if cfg.cnn_bank_mode not in ("auto", "dense", "gathered"):
+            raise ValueError(
+                f"cnn_bank_mode must be 'auto'/'dense'/'gathered', got {cfg.cnn_bank_mode!r}"
+            )
+        self.is_cnn = isinstance(model, cnn.CnnPolicy)
         self.device = resolve_device(device)
         self.step = resolve_step_impl(cfg.env_step_impl)
         # per-step kernel passes (None -> the plain model path)
@@ -105,7 +118,12 @@ class SelfplayRunner:
         return obs, legal, logits, value
 
     def bank_forward(self, stacked_params, obs_f: torch.Tensor) -> torch.Tensor:
-        """All members' logits over a shared batch, (P, B, A)."""
+        """All members' logits over a shared batch, (P, B, A): a CNN's as
+        grouped convs with BatchNorm folded (bf16 under
+        ``rollout_bank_bf16``)."""
+        if self.is_cnn:
+            return cnn.bank_logits(self.model, stacked_params, obs_f,
+                                   bf16=self.cfg.rollout_bank_bf16)
         return stacked_pi_logits(
             stacked_params, len(self.model.pi_layers), self.model.activation, obs_f
         )
@@ -113,6 +131,13 @@ class SelfplayRunner:
     def opponent_logits(self, bank: OpponentBank, use_best, opp_idx, state: HexState):
         obs_f = hex_env.observe(self.topo, state).reshape(state.batch_size, -1).to(torch.float32)
         legal = hex_env.legal_mask(self.topo, state)
+        if self.is_cnn and self.cfg.cnn_bank_mode != "dense":
+            # each game runs only its own opponent's conv stack (the best's
+            # rides the same pass)
+            logits = cnn.gathered_bank_logits(
+                self.model, bank.params, bank.best_params, use_best, opp_idx, obs_f,
+                bf16=self.cfg.rollout_bank_bf16)
+            return logits, legal
         per_member = self.bank_forward(bank.params, obs_f)  # (P, B, A)
         chosen = per_member[opp_idx.long(), torch.arange(obs_f.shape[0], device=obs_f.device)]
         best = torch.func.functional_call(self.model, bank.best_params, (obs_f,))[0]

@@ -33,7 +33,7 @@ from hex_gym_env_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass
 class TrainState:
-    params: ppo.Params  # MlpPolicy state dict on the device
+    params: ppo.Params  # the policy's state dict on the device (a CNN's BatchNorm stats too)
     opt_state: ppo.AdamState
     bank: OpponentBank
     carry: RolloutCarry
@@ -93,8 +93,9 @@ class SelfplayPPO:
         params = {k: v.detach().to(self.device) for k, v in model.state_dict().items()}
         bank = init_bank(params, self.cfg.selfplay.buffer_size)
         carry = self.runner.init_carry(bank, g)
+        trained = {k: params[k] for k in ppo.trainable_keys(model)}
         return TrainState(
-            params=params, opt_state=ppo.init_adam(params), bank=bank, carry=carry, generator=g,
+            params=params, opt_state=ppo.init_adam(trained), bank=bank, carry=carry, generator=g,
         )
 
     def seed_bank(

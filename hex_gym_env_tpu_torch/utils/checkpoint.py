@@ -1,11 +1,12 @@
 """Checkpoint/resume on ``torch.save``/``torch.load``.
 
 The counterpart of the JAX package's ``utils/checkpoint.py``.  A checkpoint
-captures the whole ``TrainState``: params, the Adam count and moments, the
-full opponent bank (snapshots + scores + best), the live env rollout carry,
-the generator's state, the iteration counter and the eval accumulator — so a
-resumed run continues the exact trajectory (the reference's SB3 zip saves
-lose the opponent pool on restart).
+captures the whole ``TrainState``: params (a CNN's BatchNorm running
+statistics with them), the Adam count and moments, the full opponent bank
+(snapshots + scores + best), the live env rollout carry, the generator's
+state, the iteration counter and the eval accumulator — so a resumed run
+continues the exact trajectory (the reference's SB3 zip saves lose the
+opponent pool on restart).
 
 Cadence mirrors the reference: a numbered save every ``checkpoint_every``
 agent transitions plus a "best" save (``EvaluationCallback.py:53-55``,

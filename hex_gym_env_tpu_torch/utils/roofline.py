@@ -15,8 +15,8 @@ The peaks are one NVIDIA H100 SXM's, from its data sheet at the full power
 limit of 700 W (dense rates, no sparsity).  The port runs its float32
 products in full float32 (``allow_tf32`` off, and the kernels on the CUDA
 cores), so the float32 rate is the denominator of ``stage``; the bf16
-tensor-core rate is the peak a bf16 stage (the CNN bank in bf16, still to
-port) would be held against.
+tensor-core rate is the peak a bf16 stage would be held against (none yet:
+the CNN's bf16 bank computes on bf16-rounded operands in float32).
 """
 
 from __future__ import annotations

@@ -95,8 +95,17 @@ def test_make_policy_families_match_shapes(family):
 
 
 def test_cnn_family_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_policy("CNN", 25)
+    """The CNN family builds, but not on the policy kernels: K2/K3 (and K4)
+    take plain MLPs, as the JAX package's do, so a CNN's passes are the
+    model's own (``tests/test_torch_cnn.py``)."""
+    from hex_gym_env_tpu_torch.models.cnn import CnnPolicy
+    from hex_gym_env_tpu_torch.utils.config import SelfplayConfig
+
+    model = make_policy("CNN", 25)
+    assert isinstance(model, CnnPolicy) and not policy_kernel.supported(model)
+    assert policy_kernel.resolve_policy_ops(model, SelfplayConfig(board_size=5)) is None
+    with pytest.raises(ValueError, match="MlpPolicy"):
+        policy_kernel.resolve_policy_ops(model, SelfplayConfig(board_size=5, policy_impl="pallas"))
 
 
 def _expected_sample(masked_logits, bits):

@@ -64,8 +64,18 @@
    launches, asserted), the BatchNorm statistics moving in every sweep, a
    bitwise resume, the stage split, the sweep's and the rollout's float32
    roofline and a profiled iteration;
-12. prints the card, a JSON line of per-kernel numbers (with each kernel's
-   launches per CNN iteration), and the final line
+12. plays the trained 7x7 agent (``models/agents/7x7_strict_sb3.pt``,
+   held bitwise against the orbax snapshot where ``tensorstore`` imports)
+   against a random player through ``scripts/match.run_match`` (``[match]``:
+   4096 games in ``a-det`` and ``stochastic`` mode on the same words on the
+   card and on the CPU, winners equal but for near ties, K1 at 50 launches a
+   match, seconds and games/s), runs a three-player tournament, and plays
+   64 random games through ``compat.HexEnv`` on the card (K1 at one game a
+   step) against the native engine, every step equal, plus one
+   ``HexEnvV0`` and one selfplay-wrapper episode (``[compat]``);
+13. prints the card, a JSON line of per-kernel numbers (with each kernel's
+   launches per CNN iteration, per match and over the 64 ``HexEnv``
+   games), and the final line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
@@ -90,12 +100,17 @@ the kernels before a change.
     python3 chip_smoke.py --cnn-only
 
 only builds the kernels and runs the ``[cnn]`` phase.
+
+    python3 chip_smoke.py --match-only
+
+only builds the kernels and runs the ``[match]`` and ``[compat]`` phases.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1120,6 +1135,228 @@ def cnn_phase(dev) -> dict:
     return want
 
 
+# ---- the match and compat surfaces -------------------------------------------------------
+
+MATCH_N = 7  # the trained MLP-default agent's board
+MATCH_GAMES = 4096
+TOURNEY_GAMES = 512  # games a pair
+
+
+def match_split_is_near_tie(topo, model, params_cpu, rec_k, rec_c, bits, a_det, game):
+    """Where the card's and the CPU's winners of ``game`` differ, the first
+    ply at which their actions differ must be a near tie of the side to
+    move: the top two of the scores it compares (masked logits, plus Gumbel
+    noise where it samples) within TOL of the row's largest logit."""
+    import torch
+
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.ops import masked
+
+    t = int((rec_k["actions"][:, game] != rec_c["actions"][:, game]).nonzero()[0])
+    st = hex_env.initial_state(topo, 1, "cpu")
+    for u in range(t):
+        st, _ = hex_env.step(topo, st, rec_c["actions"][u, game:game + 1])
+    if int(st.to_move[0]) != game % 2:  # policy A holds seat game mod 2
+        return False  # the random side's zero logits cannot split
+    legal = hex_env.legal_mask(topo, st)
+    with torch.no_grad():
+        logits = torch.func.functional_call(
+            model, params_cpu, (hex_env.observe(topo, st).to(torch.float32),))[0]
+    scores = masked.mask_logits(logits, legal)[0]
+    if not a_det:
+        scores = scores + masked.gumbel(bits[t, 0, game])
+    top = scores.topk(2).values
+    return float(top[0] - top[1]) <= TOL * float(logits[legal].abs().max())
+
+
+def match_phase(dev) -> dict:
+    """``[match]``: the trained 7x7 agent against a random player at 4096
+    games through ``scripts/match.run_match`` on the card (K1 every ply),
+    with the same words on the CPU (the plain step), and a three-player
+    tournament.  Returns the launches of one match."""
+    import numpy as np
+    import torch
+
+    from hex_gym_env_tpu_torch.core.topology import get_topology
+    from hex_gym_env_tpu_torch.models.loading import agent_path, load_policy_params
+    from hex_gym_env_tpu_torch.ops import cuda_lib, masked
+    from hex_gym_env_tpu_torch.scripts.match import bits_shape, run_match
+    from hex_gym_env_tpu_torch.scripts.tournament import run_tournament
+
+    n, games = MATCH_N, MATCH_GAMES
+    topo = get_topology(n)
+    agent = f"params:{agent_path(n)}"
+    orbax = f"orbax:{os.path.join(REPO, 'models', f'{n}x{n}_strict_sb3', 'agent_9437184')}"
+    model, params_cpu = load_policy_params(agent, n, device="cpu")
+    _, params_dev = load_policy_params(agent, n, device=dev)
+    if not all(torch.equal(params_dev[k].cpu(), params_cpu[k]) for k in params_cpu):
+        fail("[match] the params: agent loads differently on the card")
+    try:
+        import tensorstore  # noqa: F401
+        has_ts = True
+    except ImportError:
+        has_ts = False
+    if has_ts:
+        _, params_ob = load_policy_params(orbax, n, device=dev)
+        if not all(torch.equal(params_ob[k], params_dev[k]) for k in params_dev):
+            fail("[match] the orbax: snapshot and its params: copy differ")
+        print(f"[match] {orbax} and {agent} load bitwise equal")
+    else:
+        print("[match] tensorstore is not installed here, so the orbax: snapshot is not "
+              f"read; {agent} is played")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    print(f"[match] card: {smi.stdout.strip().splitlines()[0]}")
+    bits = masked.draw_bits(torch.Generator().manual_seed(2024), bits_shape(n, games), "cpu")
+    bits_dev = bits.to(dev)
+    run_match(n, 256, agent, "random", device=dev)  # warm-up: cuBLAS, the kernel library
+    torch.cuda.synchronize()
+    want = dict.fromkeys(cuda_lib.KERNELS, 0)
+    want["k1_step"] = topo.num_cells + 1
+    counts = None
+    for mode in ("a-det", "stochastic"):
+        rec_k, rec_c = {}, {}
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_match(n, games, agent, "random", mode=mode, device=dev, bits=bits_dev,
+                        record=rec_k)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(cuda_lib.launches)
+        if counts != want:
+            fail(f"[match] {mode} launched {counts}, expected {want}")
+        t0 = time.perf_counter()
+        out_cpu = run_match(n, games, agent, "random", mode=mode, device="cpu", bits=bits,
+                            record=rec_c)
+        cpu_secs = time.perf_counter() - t0
+        split = (rec_k["winners"] != rec_c["winners"]).nonzero().flatten().tolist()
+        ties = [g for g in split if match_split_is_near_tie(
+            topo, model, params_cpu, rec_k, rec_c, bits, mode == "a-det", g)]
+        if len(ties) != len(split):
+            fail(f"[match] {mode}: {len(split) - len(ties)} games end otherwise on the card "
+                 "than on the CPU, not at a near tie")
+        if out["undecided"] or not out["a_winrate"] > 0.9:
+            fail(f"[match] {mode}: the trained agent does not beat the random player: {out}")
+        same_actions = int((rec_k["actions"] == rec_c["actions"]).all(0).sum())
+        print(f"[match] {n}x{n} {mode}, {games} games, trained agent (A) vs random, the same "
+              f"words on the card and the CPU: A winrate {out['a_winrate']} (CPU "
+              f"{out_cpu['a_winrate']}), A wins as seat 0 {out['a_wins_as_seat0']}, as seat 1 "
+              f"{out['a_wins_as_seat1']}; card {secs:.4f} s ({games / secs:.1f} games/s), CPU "
+              f"{cpu_secs:.3f} s; winners equal in {games - len(split)} games, {len(ties)} "
+              f"differ at near ties; every action equal in {same_actions} games; K1 "
+              f"{counts['k1_step']} launches")
+    # what a user pays: run_match with its own seeded draws, on the card
+    times = []
+    for rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_match(n, games, agent, "random", seed=rep, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    print(f"[match] stochastic, seeded draws on the card, 3 matches of {games} games: s "
+          f"{[round(x, 4) for x in times]}, median {med:.4f} s ({games / med:.1f} games/s); "
+          f"A winrate {out['a_winrate']}")
+    wall_us, busy, top, top_host = device_profile(
+        lambda: run_match(n, games, agent, "random", seed=0, device=dev))
+    print(f"[match profile] one seeded match: wall {wall_us:.1f} us, device busy {busy:.1f} us "
+          f"({100 * busy / wall_us:.1f}%); top kernels (us): "
+          + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
+    print("[match profile] top host ops by self CPU time (us): "
+          + "; ".join(f"{k[:40]} {v:.1f}" for k, v in top_host))
+
+    players = [agent, "random", orbax if has_ts else agent]
+    t0 = time.perf_counter()
+    results, elo = run_tournament(players, board_size=n, games=TOURNEY_GAMES, device=dev)
+    torch.cuda.synchronize()
+    for r in results:
+        print(f"[tournament] {r['a']} vs {r['b']}: A winrate {r['a_winrate']}")
+    print(f"[tournament] {TOURNEY_GAMES} games a pair, Elo anchored at player 0: "
+          + "; ".join(f"{p} {e:.1f}" for p, e in zip(players, elo))
+          + f"; {time.perf_counter() - t0:.2f} s")
+    # 4 binomial standard errors of an Elo gap at p = 0.5
+    se4 = 4 * 400 / math.log(10) / 0.25 * math.sqrt(0.25 / TOURNEY_GAMES)
+    if not (abs(elo[2] - elo[0]) < se4 and elo[1] < elo[0] - 400):
+        fail(f"[tournament] the Elo table is off: {elo} (self-pair gap bound {se4:.1f})")
+    return counts
+
+
+def compat_phase(dev) -> dict:
+    """``[compat]``: 64 random 7x7 games through ``HexEnv`` on the card (K1
+    at one game a step) and the native engine, every step equal; one
+    ``HexEnvV0`` episode and one selfplay-wrapper episode against the
+    trained agent on the card.  Returns the launches of the 64 games."""
+    import numpy as np
+
+    from hex_gym_env_tpu_torch.compat import (HexEnv, HexEnvV0, TorchOpponentPolicy,
+                                              selfplay_wrapper)
+    from hex_gym_env_tpu_torch.models.loading import agent_path, load_policy_params
+    from hex_gym_env_tpu_torch.native.engine import NativeHexEnv
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    n = MATCH_N
+    rng = np.random.default_rng(9)
+    env = HexEnv(board_size=n, device=dev)
+    steps, wins = 0, [0, 0]
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    for game in range(64):
+        nat = NativeHexEnv(n)
+        obs, _ = env.reset()
+        if not np.array_equal(obs, nat.observation):
+            fail(f"[compat] game {game}: reset observations differ")
+        done = False
+        while not done:
+            legal = env.legal_actions()
+            if not np.array_equal(legal, nat.legal_actions()):
+                fail(f"[compat] game {game}: legal masks differ at step {steps}")
+            a = int(rng.choice(np.flatnonzero(legal)))
+            obs, reward, done, _ = env.step(a)
+            nobs, nreward, ndone, _ = nat.step(a)
+            steps += 1
+            if not (np.array_equal(obs, nobs) and reward == nreward and done == ndone):
+                fail(f"[compat] game {game}: the step differs from the native engine")
+        if env.winner != nat.winner or env.winner not in (0, 1):
+            fail(f"[compat] game {game}: winner {env.winner}, native {nat.winner}")
+        wins[env.winner] += 1
+    secs = time.perf_counter() - t0
+    counts = dict(cuda_lib.launches)
+    want = dict.fromkeys(cuda_lib.KERNELS, 0)
+    want["k1_step"] = steps
+    if counts != want:
+        fail(f"[compat] HexEnv launched {counts}, expected one K1 a step ({steps})")
+    print(f"[compat] HexEnv on the card = native engine over 64 {n}x{n} games, {steps} steps "
+          f"(seat 0 won {wins[0]}, seat 1 {wins[1]}): observations, masks, rewards, done flags, "
+          f"winners equal; K1 {counts['k1_step']} launches (1 a step); {secs:.2f} s "
+          f"({1e3 * secs / steps:.3f} ms a step, both engines and the checks)")
+
+    v0 = HexEnvV0(board_size=n, opponent_policy="random", seed=2, device=dev)
+    v0.reset()
+    done = False
+    while not done:
+        _, reward, done, _, _ = v0.step(int(rng.choice(np.flatnonzero(v0.legal_actions()))))
+    if reward not in (1.0, -1.0):
+        fail(f"[compat] HexEnvV0 episode ended with reward {reward}")
+    model, params = load_policy_params(f"params:{agent_path(n)}", n, device=dev)
+    sp = selfplay_wrapper(HexEnv)(board_size=n, buffer_size=4, agent_player_num=0,
+                                  base_model=TorchOpponentPolicy(model, params, seed=3),
+                                  device=dev)
+    sp.reset()
+    done, moves = False, 0
+    while not done:
+        _, sp_reward, done, _, _ = sp.step(int(rng.choice(np.flatnonzero(sp.legal_actions()))))
+        moves += 1
+    if sp_reward not in (1.0, -1.0):
+        fail(f"[compat] selfplay-wrapper episode ended with reward {sp_reward}")
+    print(f"[compat] HexEnvV0 episode: reward {reward}; selfplay wrapper against the trained "
+          f"agent (TorchOpponentPolicy on the card): the random agent's reward {sp_reward} "
+          f"after {moves} moves")
+    return counts
+
+
 def cnn_only() -> int:
     import torch
 
@@ -1134,6 +1371,26 @@ def cnn_only() -> int:
     cuda_lib.lib()
     print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
     cnn_phase(torch.device("cuda"))
+    return 0
+
+
+def match_only() -> int:
+    import torch
+
+    if not preflight(torch):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_lib.build(verbose=False)
+    cuda_lib.lib()
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    match_phase(torch.device("cuda"))
+    compat_phase(torch.device("cuda"))
+    print(f"[match + compat] phases {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -2004,7 +2261,13 @@ def main() -> int:
     cnn_counts = cnn_phase(dev)
     print(f"[cnn] phase {time.perf_counter() - t0:.1f} s")
 
-    # ---- 12. report ----------------------------------------------------------------------
+    # ---- 12. the match and tournament scripts, the Gym and native surfaces ---------------
+    t0 = time.perf_counter()
+    match_counts = match_phase(dev)
+    compat_counts = compat_phase(dev)
+    print(f"[match + compat] phases {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. report ----------------------------------------------------------------------
     rollout_src = "hex_gym_env_tpu_torch/csrc/hex_kernels.cu"
     learner_src = "hex_gym_env_tpu_torch/csrc/learner_kernels.cu"
     meta = {
@@ -2032,6 +2295,7 @@ def main() -> int:
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             "cnn_launches": cnn_counts[name],
+            "match_launches": match_counts[name], "hexenv_launches": compat_counts[name],
             **({"image_device_ms": k["image_device_ms"]} if "image_device_ms" in k else {}),
         })
     smi = subprocess.run(
@@ -2052,4 +2316,6 @@ if __name__ == "__main__":
         sys.exit(env_only(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 2 and sys.argv[1] == "--cnn-only":
         sys.exit(cnn_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--match-only":
+        sys.exit(match_only())
     sys.exit(main())

@@ -14,5 +14,6 @@ __version__ = "0.1.0"
 from hex_gym_env_tpu_torch.core.topology import HexTopology
 from hex_gym_env_tpu_torch.core.state import HexState, Winner
 from hex_gym_env_tpu_torch.core import env as hex_env
+from hex_gym_env_tpu_torch.compat.gym_env import random_policy
 
-__all__ = ["HexTopology", "HexState", "Winner", "hex_env", "__version__"]
+__all__ = ["HexTopology", "HexState", "Winner", "hex_env", "random_policy", "__version__"]

@@ -33,7 +33,12 @@ def test_package_imports_no_jax():
         "hex_gym_env_tpu_torch.models.convert, hex_gym_env_tpu_torch.experiments, "
         "hex_gym_env_tpu_torch.bench, hex_gym_env_tpu_torch.core.random_board, "
         "hex_gym_env_tpu_torch.ops.connectivity, hex_gym_env_tpu_torch.utils.roofline, "
-        "hex_gym_env_tpu_torch.utils.profiling, hex_gym_env_tpu_torch.models.cnn\n"
+        "hex_gym_env_tpu_torch.utils.profiling, hex_gym_env_tpu_torch.models.cnn, "
+        "hex_gym_env_tpu_torch.models.loading, hex_gym_env_tpu_torch.models.sb3_import, "
+        "hex_gym_env_tpu_torch.compat, hex_gym_env_tpu_torch.compat.selfplay_wrapper, "
+        "hex_gym_env_tpu_torch.native.engine, hex_gym_env_tpu_torch.interactive.interactive, "
+        "hex_gym_env_tpu_torch.utils.settings, hex_gym_env_tpu_torch.scripts.match, "
+        "hex_gym_env_tpu_torch.scripts.tournament\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r "
         "or m == 'hex_gym_env_tpu' or m.startswith('hex_gym_env_tpu.'))\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
@@ -80,6 +85,32 @@ def test_learner_without_device_needs_cuda():
         SelfplayPPO(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg)
+
+
+def test_surfaces_without_device_need_cuda():
+    """``HexEnv`` and ``run_match`` with no device run on cuda or raise."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from hex_gym_env_tpu_torch.compat import HexEnv, HexEnvV0
+    from hex_gym_env_tpu_torch.scripts.match import run_match
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HexEnv()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HexEnvV0()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_match(5, 8, "random", "random")
+
+
+def test_orbax_spec_without_tensorstore_raises(monkeypatch):
+    """Without ``tensorstore`` an ``orbax:`` spec is an ImportError that
+    names the ``params:`` copy, never made-up parameters."""
+    from hex_gym_env_tpu_torch.models.loading import load_policy_params
+
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    path = os.path.join(REPO, "models", "5x5_strict_sb3", "agent_9437184")
+    with pytest.raises(ImportError, match="params:"):
+        load_policy_params(f"orbax:{path}", 5, device="cpu")
 
 
 def test_main_process_without_torch_distributed():

@@ -73,10 +73,28 @@
    64 random games through ``compat.HexEnv`` on the card (K1 at one game a
    step) against the native engine, every step equal, plus one
    ``HexEnvV0`` and one selfplay-wrapper episode (``[compat]``);
-13. prints the card, a JSON line of per-kernel numbers (with each kernel's
-   launches per CNN iteration, per match and over the 64 ``HexEnv``
-   games), and the final line
-   ``{"ok": true, "device": {...}}``.
+13. drives the training entry points (``[train cli]``): ``python -m
+   hex_gym_env_tpu_torch.scripts.train`` at the preset for 2 iterations in a
+   subprocess (its printed line, ``metrics.jsonl``, the checkpoint), then
+   ``--resume`` to a third, bitwise equal to a 3-iteration run in one go,
+   ``scripts.export_agent`` to a ``params:`` file (bitwise the checkpoint's
+   params) and a 1024-game ``scripts.match`` of that agent against
+   ``random``; data-parallel training (``[distributed]``): ``scripts.train
+   --multichip`` in its own NCCL group of one process, the same run in this
+   process over an NCCL group of one (bitwise equal to it) with the launches
+   of each iteration (K4 1, K5 1, K1 53, K6 0) and the sweep's all-reduces
+   (one a grad step) asserted, the stage split by CUDA events, a profiled
+   iteration and a bitwise resume, the sharded eval on the card against the
+   CPU on the same words, and two ranks on the one card over gloo with CUDA
+   tensors (params bitwise replicated, the eval's rewards at D = 2 equal
+   D = 1's); and the other scripts (``[scripts]``): a ``play_cli`` session
+   with the trained 7x7 agent, the port's graft ``entry()`` actor step 8
+   times at batch 1024 (K1 8 launches) and ``dryrun_multichip(1)`` over
+   NCCL, and ``play_gui`` built headless where ``pygame`` is installed;
+14. prints the card, a JSON line of per-kernel numbers (with each kernel's
+   launches per CNN iteration, per match, over the 64 ``HexEnv`` games, per
+   distributed iteration and over the 8 graft actor steps), and the final
+   line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
 CUDA device is present or the port's sources are not beside it.
@@ -104,6 +122,12 @@ only builds the kernels and runs the ``[cnn]`` phase.
     python3 chip_smoke.py --match-only
 
 only builds the kernels and runs the ``[match]`` and ``[compat]`` phases.
+
+    python3 chip_smoke.py --train-only
+
+only builds the kernels and runs the ``[train cli]``, ``[distributed]`` and
+``[scripts]`` phases.  Their subprocesses load the kernels this process
+built (``_build/``, keyed by the sources' hash).
 """
 
 from __future__ import annotations
@@ -1357,6 +1381,443 @@ def compat_phase(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the training entry points, data-parallel training, the scripts
+# ---------------------------------------------------------------------------
+
+PER_ITER = B * T  # the preset's transitions per iteration
+DIST_SEED = 3  # the seed of the [distributed] runs
+
+
+def run_module(args, cwd, stdin=None, timeout=600) -> str:
+    """``python -m <args>`` from ``cwd`` with this checkout on the path;
+    fails on a non-zero exit and returns the standard output."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, input=stdin, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"python -m {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def read_metrics(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def iteration_seconds(recs) -> list:
+    """Seconds per iteration of the train records (``perf/steps_per_s``)."""
+    return [round(PER_ITER / r["perf/steps_per_s"], 4) for r in recs if "perf/steps_per_s" in r]
+
+
+def train_cli_phase(dev) -> None:
+    """``[train cli]``: ``scripts.train`` at the preset for 2 iterations in a
+    subprocess, ``--resume`` to a third, against a 3-iteration run in one go
+    (params bitwise equal), ``export_agent`` to a ``params:`` file, and a
+    1024-game ``scripts.match`` of the exported agent against ``random``."""
+    import torch
+
+    from hex_gym_env_tpu_torch.utils.checkpoint import CheckpointManager, load_params
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    train = ["hex_gym_env_tpu_torch.scripts.train", "--experiment", PRESET,
+             "--checkpoint-every", str(PER_ITER)]
+    t0 = time.perf_counter()
+    out = run_module(train + ["--total-timesteps", str(2 * PER_ITER)], work)
+    secs_a = time.perf_counter() - t0
+    line = f"training {PRESET}: {2 * PER_ITER} transitions on 1 device(s)"
+    if line not in out.splitlines():
+        fail(f"[train cli] the script did not print {line!r}: {out[-500:]}")
+    recs = read_metrics(os.path.join(work, "log", PRESET, "metrics.jsonl"))
+    evals = [r["step"] for r in recs if "eval/mean_reward" in r]
+    if evals != [PER_ITER, 2 * PER_ITER]:
+        fail(f"[train cli] evals at {evals}")
+    run_dir = os.path.join(work, "models", PRESET)
+    if CheckpointManager(run_dir).latest_step() != 2 * PER_ITER:
+        fail("[train cli] no checkpoint at step 65536")
+    t0 = time.perf_counter()
+    run_module(train + ["--total-timesteps", str(3 * PER_ITER), "--resume"], work)
+    secs_r = time.perf_counter() - t0
+    run_module(train + ["--total-timesteps", str(3 * PER_ITER), "--model-name", "one_go"], work)
+    resumed = CheckpointManager(run_dir).restore(map_location="cpu")
+    one_go = CheckpointManager(os.path.join(work, "models", "one_go")).restore(map_location="cpu")
+    if resumed.iteration != 3 or not all(
+            torch.equal(resumed.params[k], one_go.params[k]) for k in one_go.params):
+        fail("[train cli] the resumed third iteration differs from a 3-iteration run in one go")
+    agent = os.path.join(work, "agent.pt")
+    run_module(["hex_gym_env_tpu_torch.scripts.export_agent", "--experiment", PRESET,
+                "--out", agent], work)
+    exported = load_params(agent)
+    if not all(torch.equal(exported[k], resumed.params[k]) for k in resumed.params):
+        fail("[train cli] the exported params: file differs from the checkpoint's params")
+    t0 = time.perf_counter()
+    res = json.loads(run_module(["hex_gym_env_tpu_torch.scripts.match", "--board-size", str(N),
+                                 "--games", "1024", "--a", f"params:{agent}", "--b", "random"],
+                                work).splitlines()[-1])
+    secs_m = time.perf_counter() - t0
+    if res["games"] != 1024 or not 0.0 <= res["a_winrate"] <= 1.0:
+        fail(f"[train cli] the match of the exported agent: {res}")
+    one_go_recs = read_metrics(os.path.join(work, "log", "one_go", "metrics.jsonl"))
+    print(f"[train cli] scripts.train {PRESET}: 2 iterations {secs_a:.1f} s wall (the process "
+          f"and the first iteration's set-up included), resume to 3 {secs_r:.1f} s; s per "
+          f"iteration from metrics.jsonl: 2-iteration run {iteration_seconds(recs)}, one-go run "
+          f"{iteration_seconds(one_go_recs)}; the resumed iteration 3 bitwise equals the one-go "
+          f"run's; export_agent -> params: bitwise; exported agent vs random over 1024 games on "
+          f"the card: A winrate {res['a_winrate']} ({secs_m:.1f} s with the process)")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def _gloo_rank(rank: int, n: int, port: int, outdir: str) -> None:
+    """One of the ranks of ``[distributed]``'s gloo run: both on ``cuda:0``."""
+    import torch
+    import torch.distributed as dist
+
+    from hex_gym_env_tpu_torch.experiments import get_config
+    from hex_gym_env_tpu_torch.parallel import DistributedSelfplayPPO, bootstrap, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bootstrap.init_distributed(f"localhost:{port}", n, rank, backend="gloo")
+    try:
+        mesh = make_mesh(torch.device("cuda", 0))
+        algo = DistributedSelfplayPPO(get_config(PRESET), mesh)
+        state = algo.init_sharded_state(DIST_SEED)
+        _, res0 = algo.eval_step(state)  # the initial state's eval, at D = n
+        state = algo.init_sharded_state(DIST_SEED)
+        for _ in range(2):
+            state, _ = algo.train_step(state)
+            state, _ = algo.eval_step(state)
+        torch.cuda.synchronize()
+        torch.save({"rewards0": res0.rewards.cpu(), "grad_reduces": algo.grad_reduces,
+                    "params": {k: v.cpu() for k, v in state.params.items()}},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def eval_split_is_near_tie(topo, model, params, served, words, seat, rec_k, rec_c, e) -> bool:
+    """Where the card's and the CPU's sharded eval end episode ``e``
+    otherwise, the first ply at which their actions differ must be a near
+    tie of the side to move (as in ``[match]``): replay the CPU's actions up
+    to it, then the top two of the scores it compares (masked logits, plus
+    Gumbel noise for the opponent) within TOL of the row's largest logit."""
+    import torch
+
+    from hex_gym_env_tpu_torch.core import env as hex_env
+    from hex_gym_env_tpu_torch.models.mlp import stacked_pi_logits
+    from hex_gym_env_tpu_torch.ops import masked
+
+    A = topo.num_cells
+    t = int((rec_k["actions"][:, e] != rec_c["actions"][:, e]).nonzero()[0])
+    st = hex_env.initial_state(topo, 1, "cpu")
+    for u in range(t):
+        agent = u % 2 == 1
+        active = torch.tensor([(seat == 1) if u == 0 else (agent or not bool(st.done[0]))])
+        st, _ = hex_env.step(topo, st, rec_c["actions"][u, e:e + 1], active)
+    legal = hex_env.legal_mask(topo, st)
+    with torch.no_grad():
+        if t % 2 == 1:  # the agent's argmax
+            logits = torch.func.functional_call(
+                model, params, (hex_env.observe(topo, st).to(torch.float32),))[0][0]
+            scores = masked.mask_logits(logits, legal[0])
+        else:  # the served member's Gumbel-max draw
+            obs_f = hex_env.observe(topo, st).reshape(1, -1).to(torch.float32)
+            one = {k: v[e:e + 1] for k, v in served.items()}
+            logits = stacked_pi_logits(one, len(model.pi_layers), model.activation, obs_f)[0, 0]
+            ply = words[e, 1 + (t // 2) * A:1 + (t // 2 + 1) * A]
+            scores = masked.mask_logits(logits, legal[0]) + masked.gumbel(ply)
+    top = scores.topk(2).values
+    return float(top[0] - top[1]) <= TOL * float(logits[legal[0]].abs().max())
+
+
+def distributed_phase(dev) -> dict:
+    """``[distributed]``: ``scripts.train --multichip`` at the preset in a
+    subprocess (its own NCCL group of one process); the same run in this
+    process over an NCCL group of one, with the launches of each iteration,
+    the sweep's all-reduces and the stage split, equal to the subprocess's
+    and resumed bitwise; the sharded eval on the card against the CPU on the
+    same words; and two ranks on the one card over gloo with CUDA tensors
+    (NCCL refuses two ranks on one GPU): params bitwise replicated, the
+    eval's rewards at D = 2 equal D = 1's.  Returns the launches of one
+    iteration (train + eval)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from hex_gym_env_tpu_torch.core.topology import get_topology
+    from hex_gym_env_tpu_torch.experiments import get_config
+    from hex_gym_env_tpu_torch.ops import cuda_lib, masked
+    from hex_gym_env_tpu_torch.parallel import DistributedSelfplayPPO, bootstrap, make_mesh
+    from hex_gym_env_tpu_torch.ops.cuda_lib import philox_seed
+    from hex_gym_env_tpu_torch.parallel.mesh import tree_map
+    from hex_gym_env_tpu_torch.train.evaluate import Evaluator, episode_words
+    from hex_gym_env_tpu_torch.train.trainer import Trainer
+    from hex_gym_env_tpu_torch.utils.checkpoint import CheckpointManager
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    topo = get_topology(N)
+    E = get_config(PRESET).selfplay.eval_episodes
+    k1_eval = 1 + 2 * (topo.num_cells // 2 + 2)
+
+    # (a) the script's --multichip path in its own process
+    t0 = time.perf_counter()
+    out = run_module(["hex_gym_env_tpu_torch.scripts.train", "--experiment", PRESET,
+                      "--multichip", "--seed", str(DIST_SEED), "--total-timesteps",
+                      str(2 * PER_ITER), "--checkpoint-every", str(PER_ITER),
+                      "--model-name", "dist_cli"], work)
+    secs_cli = time.perf_counter() - t0
+    if f"training dist_cli: {2 * PER_ITER} transitions on 1 device(s)" not in out.splitlines():
+        fail(f"[distributed] scripts.train --multichip printed {out[-500:]}")
+    cli_state = CheckpointManager(os.path.join(work, "models", "dist_cli")).restore(
+        map_location="cpu")
+
+    # (b) the same run here, over an NCCL group of one process
+    bootstrap.init_distributed(f"localhost:{bootstrap.free_port()}", 1, 0, backend="nccl")
+    mesh = make_mesh()
+    if mesh.group is None or dist.get_backend() != "nccl" or mesh.world_size != 1:
+        fail(f"[distributed] not an NCCL group of one: {mesh}")
+    tcfg = get_config(PRESET, seed=DIST_SEED, total_timesteps=2 * PER_ITER,
+                      checkpoint_every=PER_ITER, log_dir=os.path.join(work, "log"),
+                      model_dir=os.path.join(work, "models"), model_name="dist")
+    algo = DistributedSelfplayPPO(tcfg, mesh)
+    trainer = Trainer(tcfg, algo=algo)
+    stages = {"rollout": [], "gae": [], "sweep": [], "all-reduce in sweep": [], "eval": [],
+              "pool update": []}
+    in_sweep = [False]
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            in_sweep[0] = stage == "sweep"
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            in_sweep[0] = False
+            stages[stage].append((start, end))
+            return out
+        return run
+
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(*args, **kwargs):
+        if not in_sweep[0]:
+            return all_reduce(*args, **kwargs)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = all_reduce(*args, **kwargs)
+        end.record()
+        stages["all-reduce in sweep"].append((start, end))
+        return out
+
+    algo.local_runner.run = timed("rollout", algo.local_runner.run)
+    algo.gae_fn = timed("gae", algo.gae_fn)
+    algo.dist_update_fn = timed("sweep", algo.dist_update_fn)
+    algo.evaluator.play_vs_pool_sharded = timed("eval", algo.evaluator.play_vs_pool_sharded)
+    algo.evaluator.apply_pool_update = timed("pool update", algo.evaluator.apply_pool_update)
+    marks = []
+    train_step = algo.train_step
+
+    def marked_train_step(state):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), dict(cuda_lib.launches), algo.grad_reduces))
+        return train_step(state)
+
+    algo.train_step = marked_train_step
+    dist.all_reduce = timed_all_reduce
+    try:
+        state_a = trainer.fit()
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    marks.append((time.perf_counter(), dict(cuda_lib.launches), algo.grad_reduces))
+    want = dict.fromkeys(cuda_lib.KERNELS, 0)
+    want.update(k4_rollout=1, k5_gae=1, k1_step=k1_eval)
+    G = tcfg.ppo.n_epochs * (PER_ITER // tcfg.ppo.minibatch_size)
+    per_iter_counts = []
+    for i in range(2):
+        got = {k: marks[i + 1][1][k] - marks[i][1][k] for k in cuda_lib.KERNELS}
+        reduces = marks[i + 1][2] - marks[i][2]
+        if got != want or reduces != G:
+            fail(f"[distributed] iteration {i + 1} launched {got} with {reduces} gradient "
+                 f"all-reduces: expected {want} and {G}")
+        per_iter_counts.append(got)
+    if not all(torch.equal(state_a.params[k].cpu(), cli_state.params[k]) for k in cli_state.params):
+        fail("[distributed] the run in this process differs from scripts.train --multichip's")
+    iter_s = [round(marks[i + 1][0] - marks[i][0], 4) for i in range(2)]
+    split = {k: [round(s.elapsed_time(e), 3) for s, e in v] for k, v in stages.items()}
+    split["all-reduce in sweep"] = [
+        round(sum(split["all-reduce in sweep"][i * G:(i + 1) * G]), 3) for i in range(2)]
+    trainer_r = Trainer(dataclasses.replace(tcfg, model_name="dist_resumed"),
+                        algo=DistributedSelfplayPPO(tcfg, mesh))
+    start = trainer_r.algo.shard_state(trainer._ckpt_mgr().restore(step=PER_ITER,
+                                                                   map_location=dev))
+    state_r = trainer_r.fit(start)
+    if not all(torch.equal(state_r.params[k], state_a.params[k]) for k in state_a.params):
+        fail("[distributed] the resumed iteration 2 differs from the uninterrupted one")
+    algo_r = trainer_r.algo
+    wall_us, busy, top, top_host = device_profile(
+        lambda: algo_r.eval_step(algo_r.train_step(state_r)[0]))
+    print(f"[distributed] scripts.train --multichip, NCCL group of one: 2 iterations "
+          f"{secs_cli:.1f} s wall with the process; in this process (NCCL group of one) the "
+          f"same run bitwise; launches per iteration {per_iter_counts[0]}; {G} gradient "
+          f"all-reduces per iteration (one a grad step); resume from iteration 1 bitwise")
+    print(f"[distributed] s per iteration {iter_s}; stage ms of iterations 1-2 (CUDA events): "
+          + "; ".join(f"{k} {v}" for k, v in split.items()))
+    print(f"[distributed profile] one iteration (train + eval): wall {wall_us:.1f} us, device "
+          f"busy {busy:.1f} us ({100 * busy / wall_us:.1f}%); top kernels (us): "
+          + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top))
+    print("[distributed profile] top host ops by self CPU time (us): "
+          + "; ".join(f"{k[:40]} {v:.1f}" for k, v in top_host))
+
+    # the sharded eval on the card (D = 1, the group of one) against the CPU on the same words
+    state0 = algo.init_sharded_state(DIST_SEED)
+    g = torch.Generator()
+    g.set_state(state0.generator.get_state())
+    eval_seed = philox_seed(g)  # the eval seed eval_step draws first
+    eids = torch.arange(E)
+    rec_k, rec_c = {}, {}
+    rewards_k = algo.evaluator.play_vs_pool_sharded(state0.params, state0.bank, eval_seed, eids,
+                                                    None, record=rec_k)
+    _, res1 = algo.eval_step(state0)
+    if not torch.equal(res1.rewards, rewards_k):
+        fail("[distributed] eval_step's rewards differ from the sharded eval on its seed")
+    params_c, bank_c = tree_map(lambda t: t.cpu(), (state0.params, state0.bank))
+    ev_c = Evaluator(topo, algo.model, tcfg.selfplay, device="cpu")
+    rewards_c = ev_c.play_vs_pool_sharded(params_c, bank_c, eval_seed, eids, None, record=rec_c)
+    split_eps = (rewards_k.cpu() != rewards_c).nonzero().flatten().tolist()
+    words = episode_words(eval_seed, eids, topo.num_cells, topo.num_cells // 2 + 3)
+    seat = (masked.unit_uniform(words[:, 0]) < 0.5).to(torch.int32)
+    served = {k: v[torch.clamp(eids, max=bank_c.size - 1)] for k, v in bank_c.params.items()}
+    ties = [e for e in split_eps if eval_split_is_near_tie(
+        topo, algo.model, params_c, served, words, int(seat[e]), rec_k, rec_c, e)]
+    if len(ties) != len(split_eps):
+        fail(f"[distributed] {len(split_eps) - len(ties)} eval episodes end otherwise on the "
+             "card than on the CPU, not at a near tie")
+    same = int((rec_k["actions"] == rec_c["actions"]).all(0).sum())
+    dist.destroy_process_group()
+
+    # (c) two ranks on the one card over gloo, CUDA tensors
+    t0 = time.perf_counter()
+    bootstrap.spawn(_gloo_rank, 2, (2, bootstrap.free_port(), work), timeout=600)
+    secs_gloo = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+    if not all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in ranks[0]["params"]):
+        fail("[distributed] the two gloo ranks' params differ after 2 iterations")
+    if not all(torch.equal(r["rewards0"], res1.rewards.cpu()) for r in ranks):
+        fail(f"[distributed] the eval's rewards at D = 2 {ranks[0]['rewards0']} differ from "
+             f"D = 1's {res1.rewards}")
+    print(f"[distributed] sharded eval, {E} episodes, the card (D = 1) against the CPU on the "
+          f"same words: rewards equal in {E - len(split_eps)}, {len(ties)} differ at near ties; "
+          f"every action equal in {same}; two ranks on the card over gloo (CUDA tensors): "
+          f"params bitwise equal after 2 iterations ({ranks[0]['grad_reduces']} gradient "
+          f"all-reduces a rank), the initial eval's rewards at D = 2 equal D = 1's; "
+          f"{secs_gloo:.1f} s with the processes")
+    shutil.rmtree(work, ignore_errors=True)
+    return per_iter_counts[0]
+
+
+CLI_SESSION = ("boardsize 7\nplay b d4\ngenmove w\nplay b c5\ngenmove w\nshowboard\n"
+               "final_score\nname\nquit\n")
+
+
+def scripts_phase(dev) -> dict:
+    """``[scripts]``: a ``play_cli`` session on the card with the trained
+    7x7 agent, the graft ``entry()`` actor step 8 times at batch 1024 (K1
+    launches asserted), ``dryrun_multichip(1)`` (NCCL), and ``play_gui``
+    built headless where ``pygame`` is installed.  Returns the launches of
+    the 8 actor steps."""
+    import torch
+
+    from hex_gym_env_tpu_torch.__graft_entry__ import dryrun_multichip, entry
+    from hex_gym_env_tpu_torch.models.loading import agent_path
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    agent = f"params:{agent_path(MATCH_N)}"
+    t0 = time.perf_counter()
+    out = run_module(["hex_gym_env_tpu_torch.scripts.play_cli", "--board-size", "7",
+                      "--checkpoint", agent], REPO, stdin=CLI_SESSION)
+    secs = time.perf_counter() - t0
+    replies = [line for line in out.splitlines() if line.startswith(("=", "?"))]
+    moves = [r.split()[1] for r, c in zip(replies, CLI_SESSION.splitlines())
+             if c.startswith("genmove")]
+    board = [line for line in out.splitlines() if line.strip() and set(line.strip()) <= set("BW. ")]
+    if any(r.startswith("?") for r in replies) or len(moves) != 2 or len(board) != 7:
+        fail(f"[scripts] play_cli session: {out}")
+    print(f"[scripts] play_cli on the card with {agent}: genmove answered {moves}, board of "
+          f"{sum(line.count('B') + line.count('W') for line in board)} stones, final_score "
+          f"{replies[6][2:]}; {secs:.1f} s with the process")
+
+    fn, (params, state, gen) = entry()
+    fn(params, state, gen)  # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        state, (action, rewards, value) = fn(params, state, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 8 * 1e3
+    counts = dict(cuda_lib.launches)
+    want = dict.fromkeys(cuda_lib.KERNELS, 0)
+    want["k1_step"] = 8
+    if counts != want or action.shape != (1024,) or not bool(torch.isfinite(value).all()):
+        fail(f"[scripts] entry()'s actor step launched {counts} (expected {want})")
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    print(f"[scripts] graft entry(): 8 eager actor steps at batch 1024, {ms:.3f} ms a step, "
+          f"K1 {counts['k1_step']} launches; dryrun_multichip(1) (NCCL) ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    try:
+        import pygame  # noqa: F401
+    except ImportError:
+        print("[scripts] play_gui not run on the card: pygame is not installed here (the "
+              "GUI's tests run on the CPU)")
+        return counts
+    os.environ.setdefault("SDL_VIDEODRIVER", "dummy")
+    os.environ.setdefault("SDL_AUDIODRIVER", "dummy")
+    from hex_gym_env_tpu_torch.scripts.play_gui import build
+
+    env, act = build(MATCH_N, agent, agent_seat=0, device=dev)
+    obs, _ = env.reset()
+    legal = env.legal_actions()
+    a = act(obs, legal)
+    if not legal[a]:
+        fail("[scripts] play_gui's agent chose an illegal move")
+    env.opponent_model.gui.update_board(env.world_board())
+    pygame.quit()
+    print(f"[scripts] play_gui built headless on the card (SDL_VIDEODRIVER=dummy): the agent opens "
+          f"at {a}")
+    return counts
+
+
+def train_only() -> int:
+    import torch
+
+    if not preflight(torch):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_lib.build(verbose=False)
+    cuda_lib.lib()
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    for phase in (train_cli_phase, distributed_phase, scripts_phase):
+        t0 = time.perf_counter()
+        phase(dev)
+        print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
 def cnn_only() -> int:
     import torch
 
@@ -2267,7 +2728,14 @@ def main() -> int:
     compat_counts = compat_phase(dev)
     print(f"[match + compat] phases {time.perf_counter() - t0:.1f} s")
 
-    # ---- 13. report ----------------------------------------------------------------------
+    # ---- 13. the training entry points, data-parallel training, the scripts -------------
+    t0 = time.perf_counter()
+    train_cli_phase(dev)
+    dist_counts = distributed_phase(dev)
+    entry_counts = scripts_phase(dev)
+    print(f"[train cli + distributed + scripts] phases {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. report ----------------------------------------------------------------------
     rollout_src = "hex_gym_env_tpu_torch/csrc/hex_kernels.cu"
     learner_src = "hex_gym_env_tpu_torch/csrc/learner_kernels.cu"
     meta = {
@@ -2296,6 +2764,7 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": None,
             "cnn_launches": cnn_counts[name],
             "match_launches": match_counts[name], "hexenv_launches": compat_counts[name],
+            "dist_launches": dist_counts[name], "entry_launches": entry_counts[name],
             **({"image_device_ms": k["image_device_ms"]} if "image_device_ms" in k else {}),
         })
     smi = subprocess.run(
@@ -2316,6 +2785,8 @@ if __name__ == "__main__":
         sys.exit(env_only(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 2 and sys.argv[1] == "--cnn-only":
         sys.exit(cnn_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--train-only":
+        sys.exit(train_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--match-only":
         sys.exit(match_only())
     sys.exit(main())

@@ -22,6 +22,12 @@ then one K4 launch in ``eval_mode``; configs that pin the scan/lax paths,
 a CNN, ``sample_board`` (episodes start from random mid-game boards) and
 ``symmetric_eval`` take the plain loop (the env step K1 on the card).
 
+The data-parallel trainer (``parallel/distributed.py``) evaluates a slice of
+the episode grid per rank through ``play_vs_pool_sharded``: every draw there
+is keyed by the global episode id (each episode's words from its own
+generator, ``episode_words``), so the rewards do not depend on how many
+ranks share the grid.
+
 Seat protocol: under ``seat_mode="per_episode"`` each eval episode draws a
 fresh agent seat.  Under ``seat_mode="fixed_random"`` eval episode ``i``
 inherits the seat of rollout env ``i mod n_envs`` (the reference evaluates
@@ -91,6 +97,29 @@ def paired_pi_logits(served, n_layers: int, activation: str, x: torch.Tensor) ->
     return torch.baddbmm(b[:, None, :], h, W.transpose(1, 2))[:, 0]
 
 
+def fold_seed(seed: int, index: int) -> int:
+    """The 63-bit seed of stream ``index`` under ``seed`` (a global eval
+    episode, a rank): a fixed mix, splitmix64's finalizer, in place of JAX's
+    ``fold_in``."""
+    z = (seed + 0x9E3779B97F4A7C15 * (index + 1)) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+
+
+def episode_words(eval_seed: int, episode_ids: torch.Tensor, n_actions: int,
+                  n_plies: int) -> torch.Tensor:
+    """(El, 1 + n_plies * A) int32 words on the CPU, row i drawn from
+    episode ``episode_ids[i]``'s own generator: the seat word, then for each
+    opponent ply (the opening, then one per move pair) a word per action for
+    its Gumbel-max draw (``scripts/match.bits_shape``'s layout)."""
+    out = torch.empty((episode_ids.numel(), 1 + n_plies * n_actions), dtype=torch.int32)
+    for i, e in enumerate(episode_ids.tolist()):
+        g = torch.Generator().manual_seed(fold_seed(eval_seed, e))
+        out[i] = masked.draw_bits(g, out.shape[1:], "cpu")
+    return out
+
+
 class Evaluator:
     """Eval passes for one config on one device (``device=None`` means
     ``cuda``, which must exist)."""
@@ -106,10 +135,12 @@ class Evaluator:
         # keep the plain loop
         self.fused_pol = rollout_kernel.resolve(model, cfg)
 
-    def _opponent_move(self, served, st, generator, active):
-        """Served member i plays episode i: an MLP's towers as batched
-        products, a CNN's as one grouped conv per layer with BatchNorm
-        folded (``models/cnn.bank_logits(..., paired=True)``, float32)."""
+    def _opponent_move(self, served, st, bits, active):
+        """Served member i plays episode i, its Gumbel-max draw over the
+        (B, A) words ``bits``: an MLP's towers as batched products, a CNN's
+        as one grouped conv per layer with BatchNorm folded
+        (``models/cnn.bank_logits(..., paired=True)``, float32).  Returns
+        the env step's ``(state, rewards)`` and the actions."""
         topo = self.topo
         obs_f = hex_env.observe(topo, st).reshape(st.batch_size, -1).to(torch.float32)
         if isinstance(self.model, CnnPolicy):
@@ -117,9 +148,16 @@ class Evaluator:
         else:
             logits = paired_pi_logits(served, len(self.model.pi_layers), self.model.activation,
                                       obs_f)
-        legal = hex_env.legal_mask(topo, st)
-        a = masked.sample(masked.draw_bits(generator, legal.shape, self.device), logits, legal)
-        return self.step(topo, st, a, active=active)
+        a = masked.sample(bits, logits, hex_env.legal_mask(topo, st))
+        return (*self.step(topo, st, a, active=active), a)
+
+    def _agent_move(self, params, st):
+        """The agent's deterministic move (SB3 ``evaluate_policy``'s
+        default): the env step's ``(state, rewards)`` and the actions."""
+        obs = hex_env.observe(self.topo, st).to(torch.float32)
+        logits, _ = torch.func.functional_call(self.model, params, (obs,))
+        a = masked.mode(logits, hex_env.legal_mask(self.topo, st))
+        return (*self.step(self.topo, st, a), a)
 
     def start_states(self, n_episodes: int, generator: torch.Generator):
         """The eval episodes' boards before the opening move: empty, or under
@@ -161,16 +199,16 @@ class Evaluator:
         served = {k: v[serve] for k, v in bank.params.items()}
 
         state = self.start_states(n_ep, generator)
+        shape = (n_ep, topo.num_cells)
         # the opponent opens where it holds seat 0
-        state, _ = self._opponent_move(served, state, generator, active=seat == 1)
+        state, _, _ = self._opponent_move(served, state, masked.draw_bits(generator, shape, dev),
+                                          active=seat == 1)
         total = torch.zeros((n_ep,), dtype=torch.float32, device=dev)
         seat_col = seat[:, None].long()
         for _ in range(topo.num_cells // 2 + 2):
-            obs = hex_env.observe(topo, state).to(torch.float32)
-            legal = hex_env.legal_mask(topo, state)
-            logits, _ = torch.func.functional_call(self.model, params, (obs,))
-            state, rew1 = self.step(topo, state, masked.mode(logits, legal))  # deterministic agent
-            state, rew2 = self._opponent_move(served, state, generator, active=~state.done)
+            state, rew1, _ = self._agent_move(params, state)
+            state, rew2, _ = self._opponent_move(
+                served, state, masked.draw_bits(generator, shape, dev), active=~state.done)
             total = total + (rew1.gather(1, seat_col)[:, 0] + rew2.gather(1, seat_col)[:, 0])
         if sym:
             return 0.5 * (total[:E] + total[E:])  # per-member two-seat mean
@@ -216,6 +254,81 @@ class Evaluator:
             bits=bits, generator=generator, eval_mode=True, bank_bf16=cfg.rollout_bank_bf16,
         )
         return out.flts[..., rollout_kernel.F_REWARD].sum(dim=0)
+
+    @torch.no_grad()
+    def play_vs_pool_sharded(
+        self,
+        params,
+        bank: OpponentBank,
+        eval_seed: int,
+        episode_ids: torch.Tensor,
+        seats_all: Optional[torch.Tensor],
+        words: Optional[torch.Tensor] = None,
+        record: Optional[dict] = None,
+    ) -> torch.Tensor:
+        """Evaluate an explicit slice of the global episode grid (the
+        sharded eval of ``parallel/distributed.py``); returns the (El,)
+        final agent rewards of ``episode_ids``.
+
+        Every draw is keyed by the GLOBAL episode id, so ranks that each
+        evaluate a slice produce bitwise the per-episode rewards of one rank
+        evaluating the whole grid.  Torch has no ``fold_in``: episode ``e``
+        draws its words (``episode_words``) from its own CPU generator,
+        seeded by ``fold_seed(eval_seed, e)``; ``words`` replaces them.
+        The first word draws the seat under ``per_episode``; ``fixed_random``
+        reads the whole rollout seat vector ``seats_all`` (gathered over the
+        ranks) at ``e mod n_envs``.  Under ``symmetric_eval`` the grid has 2E
+        rows: episode ``e`` plays member ``min(e mod E, P-1)`` with the agent
+        in seat ``e // E``, and the caller averages the halves.  ``record``,
+        where given, receives the CPU tensor ``actions`` (1 + 2 * pairs, El):
+        the opening ply, then the agent's and the opponent's move of each
+        pair.  ``sample_board`` runs take the replicated evaluator."""
+        topo, cfg, dev = self.topo, self.cfg, self.device
+        if cfg.sample_board:
+            raise NotImplementedError(
+                "sharded eval does not support sample_board; use the replicated evaluator"
+            )
+        P, E, A = bank.size, cfg.eval_episodes, topo.num_cells
+        n_pairs = topo.num_cells // 2 + 2
+        eids = episode_ids.to("cpu", torch.int64)
+        n_ep = eids.numel()
+        if n_ep == 0:  # a rank past the grid's end
+            return torch.zeros((0,), dtype=torch.float32, device=dev)
+        shape = (n_ep, 1 + (n_pairs + 1) * A)
+        if words is None:
+            words = episode_words(eval_seed, eids, A, n_pairs + 1)
+        elif tuple(words.shape) != shape or words.dtype != torch.int32:
+            raise ValueError(f"words must be int32 of shape {shape}, got {tuple(words.shape)} "
+                             f"{words.dtype}")
+        words = words.to(dev)
+        if cfg.symmetric_eval:
+            member = torch.clamp(eids % E, max=P - 1)
+            seat = eids // E
+        else:
+            member = torch.clamp(eids, max=P - 1)
+            if cfg.seat_mode == "fixed_random":
+                seat = seats_all.cpu()[eids % seats_all.shape[0]]
+            else:
+                seat = masked.unit_uniform(words[:, 0]) < 0.5
+        seat = seat.to(dev, torch.int32)
+        served = {k: v[member.to(v.device)] for k, v in bank.params.items()}
+        plies = words[:, 1:].reshape(n_ep, n_pairs + 1, A)
+
+        state = hex_env.initial_state(topo, n_ep, dev)
+        # the opponent opens where it holds seat 0
+        state, _, a0 = self._opponent_move(served, state, plies[:, 0], active=seat == 1)
+        actions = [a0]
+        total = torch.zeros((n_ep,), dtype=torch.float32, device=dev)
+        seat_col = seat[:, None].long()
+        for s in range(n_pairs):
+            state, rew1, a1 = self._agent_move(params, state)
+            state, rew2, a2 = self._opponent_move(served, state, plies[:, s + 1],
+                                                  active=~state.done)
+            total = total + (rew1.gather(1, seat_col)[:, 0] + rew2.gather(1, seat_col)[:, 0])
+            actions += [a1, a2]
+        if record is not None:
+            record["actions"] = torch.stack(actions).cpu()
+        return total
 
     def apply_pool_update(
         self,

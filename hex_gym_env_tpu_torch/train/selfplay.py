@@ -98,6 +98,19 @@ class SelfplayPPO:
             params=params, opt_state=ppo.init_adam(trained), bank=bank, carry=carry, generator=g,
         )
 
+    # -- placement: the identity on one device (see parallel/distributed.py) --
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """``state`` laid out for this process (the identity here)."""
+        return state
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """The whole ``state``, as a checkpoint holds it (the identity here)."""
+        return state
+
+    def barrier(self) -> None:
+        """Wait for every process of the run (none here)."""
+
     def seed_bank(
         self,
         state: TrainState,

@@ -16,8 +16,10 @@ curriculum and random stream for the same config.  Metric scalars are
 fetched one call late, so the host waits on call k only after it has queued
 call k+1's work.
 
-Multi-process runs write metrics from rank 0 only
-(``bootstrap.is_main_process``).
+Multi-process runs (``parallel/distributed.py``) write metrics, checkpoints
+and the ``best_*`` dumps from rank 0 only (``bootstrap.is_main_process``); a
+checkpoint is collective: every rank gathers the whole state
+(``algo.gather_state``), rank 0 writes it, and the others wait for it.
 """
 
 from __future__ import annotations
@@ -88,24 +90,33 @@ class Trainer:
         return self._ckpt
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """A fresh state, laid out for this process (``algo.shard_state``)."""
         seed = self.cfg.selfplay.seed if seed is None else seed
-        return self.algo.init_state(seed)
+        return self.algo.shard_state(self.algo.init_state(seed))
 
     def resume(self) -> TrainState:
-        return self._ckpt_mgr().restore(map_location=self.algo.device)
+        """The latest checkpoint, laid out for this process."""
+        state = self._ckpt_mgr().restore(map_location=self.algo.device)
+        return self.algo.shard_state(state)
 
     def _save_checkpoint(self, steps: int, state: TrainState, best0: float) -> None:
-        """Checkpoint + best-snapshot save.  The ``best_*`` param dump is
-        skipped while ``best_score`` has not moved since fit started: before
-        the first promotion the "best" is the zero-params random policy or a
-        seeded opponent, neither of which is this run's agent."""
-        self._ckpt_mgr().save(steps, state)
-        best_score = float(state.bank.best_score)
-        if best_score > best0:
-            ckpt_lib.save_params(
-                os.path.join(self.cfg.model_dir, self.cfg.model_name, f"best_{best_score:.4f}"),
-                state.bank.best_params,
-            )
+        """Checkpoint + best-snapshot save, collective in a multi-process
+        run: every rank gathers, rank 0 writes, every rank waits.  The
+        ``best_*`` param dump is skipped while ``best_score`` has not moved
+        since fit started: before the first promotion the "best" is the
+        zero-params random policy or a seeded opponent, neither of which is
+        this run's agent."""
+        whole = self.algo.gather_state(state)
+        if is_main_process():
+            self._ckpt_mgr().save(steps, whole)
+            best_score = float(whole.bank.best_score)
+            if best_score > best0:
+                ckpt_lib.save_params(
+                    os.path.join(self.cfg.model_dir, self.cfg.model_name,
+                                 f"best_{best_score:.4f}"),
+                    whole.bank.best_params,
+                )
+        self.algo.barrier()
 
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
         """Training loop: ``iters_per_dispatch`` (train + cadenced eval)

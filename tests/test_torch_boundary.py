@@ -38,7 +38,11 @@ def test_package_imports_no_jax():
         "hex_gym_env_tpu_torch.compat, hex_gym_env_tpu_torch.compat.selfplay_wrapper, "
         "hex_gym_env_tpu_torch.native.engine, hex_gym_env_tpu_torch.interactive.interactive, "
         "hex_gym_env_tpu_torch.utils.settings, hex_gym_env_tpu_torch.scripts.match, "
-        "hex_gym_env_tpu_torch.scripts.tournament\n"
+        "hex_gym_env_tpu_torch.scripts.tournament, hex_gym_env_tpu_torch.parallel, "
+        "hex_gym_env_tpu_torch.parallel.mesh, hex_gym_env_tpu_torch.parallel.distributed, "
+        "hex_gym_env_tpu_torch.scripts.train, hex_gym_env_tpu_torch.scripts.export_agent, "
+        "hex_gym_env_tpu_torch.scripts.train_legacy, hex_gym_env_tpu_torch.scripts.play_cli, "
+        "hex_gym_env_tpu_torch.scripts.play_gui, hex_gym_env_tpu_torch.__graft_entry__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r "
         "or m == 'hex_gym_env_tpu' or m.startswith('hex_gym_env_tpu.'))\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
@@ -100,6 +104,31 @@ def test_surfaces_without_device_need_cuda():
         HexEnvV0()
     with pytest.raises(RuntimeError, match="CUDA"):
         run_match(5, 8, "random", "random")
+
+
+def test_entry_points_without_device_need_cuda(tmp_path, monkeypatch):
+    """The training, export, legacy, CLI and GUI entry points and the graft
+    entry run on cuda unless asked for the CPU, and raise where it is absent."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from hex_gym_env_tpu_torch.__graft_entry__ import dryrun_multichip, entry
+    from hex_gym_env_tpu_torch.parallel import make_mesh
+    from hex_gym_env_tpu_torch.scripts import (export_agent, play_cli, play_gui, train,
+                                               train_legacy)
+
+    monkeypatch.chdir(tmp_path)
+    tiny = ["--experiment", "3x3_MLP-default_lr-0.0003", "--n-envs", "2", "--n-steps", "4",
+            "--minibatch-size", "8"]
+    for call in (lambda: train.main(tiny), lambda: train.main(tiny + ["--multichip"]),
+                 lambda: export_agent.main(["--experiment", "3x3_MLP-default_lr-0.0003"]),
+                 lambda: train_legacy.main(["--bursts", "1"]), lambda: play_cli.CliGame(3),
+                 lambda: play_gui.build(3, "random"), entry, make_mesh,
+                 lambda: dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
 
 
 def test_orbax_spec_without_tensorstore_raises(monkeypatch):

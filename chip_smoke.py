@@ -91,10 +91,21 @@
    with the trained 7x7 agent, the port's graft ``entry()`` actor step 8
    times at batch 1024 (K1 8 launches) and ``dryrun_multichip(1)`` over
    NCCL, and ``play_gui`` built headless where ``pygame`` is installed;
-14. prints the card, a JSON line of per-kernel numbers (with each kernel's
+14. runs the port's verify and measure tools (``[tools]``, each through
+   its ``main``): ``scripts.selftest`` (K1 against the plain step; the
+   Philox draws of K2, K3 and K4, its opponent openings too, legal, seeded
+   and uniform by a chi-square; K4's opponent reply; a K4 record replayed;
+   K5 bitwise; K6 on the ``pallas-fast`` schedule against its twin and the
+   autograd replay), the 5x5 learning probe ``scripts.verify_train`` with
+   ``pallas-fast`` and ``pallas`` (each above +0.5 against random),
+   ``scripts.breakdown_bench`` at its defaults and at the 7x7 MLP preset's
+   shape (every stage and its roofline), and ``scripts.scaling_bench
+   --devices 1 --predict`` in an NCCL group of one (its collectives a train
+   step and an eval asserted); a tool's non-zero exit fails the run;
+15. prints the card, a JSON line of per-kernel numbers (with each kernel's
    launches per CNN iteration, per match, over the 64 ``HexEnv`` games, per
-   distributed iteration and over the 8 graft actor steps), and the final
-   line ``{"ok": true, "device": {...}}``.
+   distributed iteration, over the 8 graft actor steps and in the
+   ``[tools]`` phase), and the final line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
 CUDA device is present or the port's sources are not beside it.
@@ -128,6 +139,10 @@ only builds the kernels and runs the ``[match]`` and ``[compat]`` phases.
 only builds the kernels and runs the ``[train cli]``, ``[distributed]`` and
 ``[scripts]`` phases.  Their subprocesses load the kernels this process
 built (``_build/``, keyed by the sources' hash).
+
+    python3 chip_smoke.py --tools-only
+
+only builds the kernels and runs the ``[tools]`` phase.
 """
 
 from __future__ import annotations
@@ -1792,6 +1807,114 @@ def scripts_phase(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the repo's verify and measure tools
+# ---------------------------------------------------------------------------
+
+# the 7x7 MLP preset's shape for the breakdown (its per-stage yardstick)
+BREAKDOWN_PRESET = ["--board-size", "7", "--n-envs", "256", "--n-steps", "128",
+                    "--minibatch-size", "4096", "--buffer-size", "30", "--repeats", "3"]
+BREAKDOWN_STAGES = ["null_dispatch", "rollout", "gae", "update", "update_lax", "perm_gather",
+                    "train_step", "superstep_per_iter"]
+
+
+def tools_phase(dev) -> dict:
+    """``[tools]``: the port's verify and measure tools on the card, each
+    through its ``main``: ``scripts.selftest`` (``--repeats 0``), the 5x5
+    learning probe ``scripts.verify_train`` with ``pallas-fast`` and with
+    ``pallas``, ``scripts.breakdown_bench`` at its defaults and at the 7x7
+    MLP preset's shape, and ``scripts.scaling_bench --devices 1 --predict``
+    in an NCCL group of one.  A tool's non-zero exit or failed check fails
+    the run.  Returns the launches of each kernel in the phase."""
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+    from hex_gym_env_tpu_torch.scripts import breakdown_bench, scaling_bench, selftest, verify_train
+
+    def tool(module, argv):
+        name = module.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        try:
+            out = module.main(argv)
+        except SystemExit as e:
+            fail(f"[tools] {name} {' '.join(argv)} exited {e.code}")
+        except AssertionError as e:
+            fail(f"[tools] {name} {' '.join(argv)} failed its check: {e}")
+        print(f"[tools] {name} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    cuda_lib.reset_launches()
+    st = tool(selftest, ["--repeats", "0"])
+    chi2 = st["chi_square"]
+    if len(chi2) != 4 or max(chi2.values()) >= selftest.CHI2_CRIT:
+        fail(f"[tools] selftest chi-squares {chi2}")
+    probes = [tool(verify_train, [impl]) for impl in ("pallas-fast", "pallas")]
+    if not all(p["pass"] and p["transitions"] == 128 * 256 * 64 for p in probes):
+        fail(f"[tools] verify_train: {probes}")
+    tables = {}
+    for label, argv in (("defaults", []), ("7x7 preset", BREAKDOWN_PRESET)):
+        recs = tool(breakdown_bench, argv)
+        stages = [r["stage"] for r in recs[:-1]]
+        summary = recs[-1].get("summary", {})
+        if (stages != BREAKDOWN_STAGES or summary.get("peak") != "fp32"
+                or len(summary.get("roofline", [])) != len(BREAKDOWN_STAGES) - 1
+                or summary.get("sustained_mfu_pct") is None):
+            fail(f"[tools] breakdown_bench {label}: stages {stages}, summary {summary}")
+        tables[label] = {r["stage"]: r["ms"] for r in recs[:-1]}
+        print(f"[tools] breakdown at {label}: " + ", ".join(
+            f"{k} {v} ms" for k, v in tables[label].items())
+            + f"; update_lax / update {tables[label]['update_lax'] / tables[label]['update']:.1f}"
+            + f"; sustained {summary['sustained_transitions_per_s']} transitions/s, "
+            f"{summary['sustained_mfu_pct']}% of the fp32 peak")
+    rows = tool(scaling_bench, ["--devices", "1", "--predict"])
+    row, pred = rows[0], rows[1]["predicted_scaling"]
+    grads = row["grad_allreduces_per_iter"]
+    want = {"train_step": {"all_reduce": grads + 2, "broadcast": 0},
+            "eval_step": {"all_reduce": 1, "broadcast": 0}}
+    if (row["devices"] != 1 or row["platform"] != "cuda" or row["collectives"] != want
+            or grads != 80 or pred["model"]["grad_allreduces_per_iter"] != grads
+            or len(pred["hosts"]) != 3):
+        fail(f"[tools] scaling_bench: {row}, {pred}")
+    st_ = row["stages"]
+    print(f"[tools] scaling D = 1 (NCCL group of one): iter {row['iter_ms']:.3f} ms, "
+          f"{row['transitions_per_s']:.1f} transitions/s, collectives a train step "
+          f"{row['collectives']['train_step']}, an eval {row['collectives']['eval_step']}; "
+          f"rollout + GAE {st_['rollout_gae_ms']:.3f} ms, sweep {st_['update_allreduce_ms']:.3f} "
+          f"ms with its all-reduces, {st_['update_local_ms']:.3f} ms without, delta "
+          f"{st_['collective_delta_ms']:.3f} ms; eval sharded {row['eval_sharded_ms']:.3f} ms, "
+          f"replicated {row['eval_replicated_ms']:.3f} ms; predicted efficiency at 1, 2, 4 hosts "
+          f"{[h['predicted_efficiency'] for h in pred['hosts']]}")
+    counts = dict(cuda_lib.launches)
+    ran = ("k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
+           "k5_gae", "k6_ppo")
+    if not all(counts[k] > 0 for k in ran):
+        fail(f"[tools] the tools launched {counts}: a kernel of their paths did not run")
+    print(f"[tools] launches in the phase: {counts}")
+    return counts
+
+
+def tools_only() -> int:
+    import torch
+
+    if not preflight(torch):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_lib.build(verbose=False)
+    cuda_lib.lib()
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tools_phase(torch.device("cuda"))
+    print(f"[tools] phase {time.perf_counter() - t0:.1f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
 def train_only() -> int:
     import torch
 
@@ -2735,7 +2858,12 @@ def main() -> int:
     entry_counts = scripts_phase(dev)
     print(f"[train cli + distributed + scripts] phases {time.perf_counter() - t0:.1f} s")
 
-    # ---- 14. report ----------------------------------------------------------------------
+    # ---- 14. the verify and measure tools --------------------------------------------------
+    t0 = time.perf_counter()
+    tools_counts = tools_phase(dev)
+    print(f"[tools] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. report ----------------------------------------------------------------------
     rollout_src = "hex_gym_env_tpu_torch/csrc/hex_kernels.cu"
     learner_src = "hex_gym_env_tpu_torch/csrc/learner_kernels.cu"
     meta = {
@@ -2765,6 +2893,7 @@ def main() -> int:
             "cnn_launches": cnn_counts[name],
             "match_launches": match_counts[name], "hexenv_launches": compat_counts[name],
             "dist_launches": dist_counts[name], "entry_launches": entry_counts[name],
+            "tools_launches": tools_counts[name],
             **({"image_device_ms": k["image_device_ms"]} if "image_device_ms" in k else {}),
         })
     smi = subprocess.run(
@@ -2789,4 +2918,6 @@ if __name__ == "__main__":
         sys.exit(train_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--match-only":
         sys.exit(match_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--tools-only":
+        sys.exit(tools_only())
     sys.exit(main())

@@ -12,6 +12,8 @@ match and tournament scripts and the selfplay wrapper's opponents:
 - ``params:<file>``   — a snapshot of this package's
                         ``utils/checkpoint.save_params``.
 
+``spec_from_path`` turns the bare paths the CLI scripts take into specs.
+
 The repo's trained agents are also kept as ``params:`` files beside this
 module (``models/agents/{5x5,6x6,7x7}_strict_sb3.pt``), so a machine without
 ``tensorstore`` can play them.
@@ -35,6 +37,18 @@ AGENTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "agents")
 def agent_path(board_size: int) -> str:
     """The ``params:`` copy of the repo's trained ``NxN_strict_sb3`` agent."""
     return os.path.join(AGENTS_DIR, f"{board_size}x{board_size}_strict_sb3.pt")
+
+
+def spec_from_path(path: str) -> str:
+    """The spec of a ``--checkpoint`` argument: an existing directory is an
+    orbax snapshot (``orbax:<dir>``, what the JAX scripts take), an existing
+    file a ``params:`` file; anything else (a prefixed spec, ``random``) is
+    returned as it is."""
+    if os.path.isdir(path):
+        return f"orbax:{path}"
+    if os.path.isfile(path):
+        return f"params:{path}"
+    return path
 
 
 def read_orbax_tree(path: str) -> dict:

@@ -32,23 +32,28 @@ DATA_AXIS = "data"
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place in the data-parallel group.  ``group`` is None
-    when no process group is initialized (one process, no collective)."""
+    when no process group is initialized (one process, no collective).
+    ``issued`` counts the collectives this mesh has issued, by kind."""
 
     world_size: int
     rank: int
     device: torch.device
     group: Any = None
+    issued: dict = dataclasses.field(
+        default_factory=lambda: {"all_reduce": 0, "broadcast": 0}, compare=False)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks, in place (bools as uint8)."""
         if self.group is not None:
             dist.all_reduce(_wire(t), op=dist.ReduceOp.SUM, group=self.group)
+            self.issued["all_reduce"] += 1
         return t
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` on every rank, in place."""
         if self.group is not None:
             dist.broadcast(_wire(t), src=0, group=self.group)
+            self.issued["broadcast"] += 1
         return t
 
     def barrier(self) -> None:

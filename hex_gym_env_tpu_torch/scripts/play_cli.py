@@ -12,7 +12,8 @@ loop over ``compat.HexEnv``.  Commands (a subset of GTP adapted to Hex):
     final_score            "B+" / "W+" / "?" while undecided
     list_commands / quit
 
-Engine policy: ``--checkpoint`` (a ``params:`` or ``orbax:`` spec),
+Engine policy: ``--checkpoint`` (a ``params:`` or ``orbax:`` spec, or a
+bare path: a directory is read as ``orbax:``, a file as ``params:``),
 ``--sb3`` (a reference SB3 zip), else uniform random.  ``genmove`` samples
 through the masked Gumbel-max sampler from a generator seeded with 0.  The
 game runs on ``cuda`` (the env step's kernel) unless ``--cpu``.
@@ -36,10 +37,13 @@ COMMANDS = [
 
 
 def policy_spec(sb3: Optional[str], checkpoint: Optional[str]) -> str:
-    """The ``models/loading`` spec of the CLI's engine policy."""
+    """The ``models/loading`` spec of the CLI's engine policy: ``checkpoint``
+    is a spec or a bare path (``models/loading.spec_from_path``)."""
+    from hex_gym_env_tpu_torch.models.loading import spec_from_path
+
     if sb3:
         return f"sb3:{sb3}"
-    return checkpoint or "random"
+    return spec_from_path(checkpoint) if checkpoint else "random"
 
 
 class CliGame:
@@ -167,7 +171,8 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--board-size", type=int, default=5)
     ap.add_argument("--sb3", help="a reference SB3 zip checkpoint")
-    ap.add_argument("--checkpoint", help="a params:/orbax: spec")
+    ap.add_argument("--checkpoint",
+                    help="a params:/orbax: spec, an orbax directory or a params: file")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = ap.parse_args(argv)
     game = CliGame(args.board_size, sb3=args.sb3, checkpoint=args.checkpoint,

@@ -3,7 +3,8 @@
 The counterpart of the JAX package's ``scripts/play_gui.py``, over the
 port's ``interactive/`` and the selfplay wrapper of ``compat/``:
 
-    # a params: (or orbax:) spec
+    # a params: (or orbax:) spec, or a bare path (a directory is orbax:,
+    # a file params:)
     python -m hex_gym_env_tpu_torch.scripts.play_gui --board-size 7 \\
         --checkpoint params:hex_gym_env_tpu_torch/models/agents/7x7_strict_sb3.pt
 
@@ -68,7 +69,8 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--board-size", type=int, default=5)
     ap.add_argument("--sb3", help="path to a reference SB3 zip checkpoint")
-    ap.add_argument("--checkpoint", help="a params:/orbax: spec")
+    ap.add_argument("--checkpoint",
+                    help="a params:/orbax: spec, an orbax directory or a params: file")
     ap.add_argument("--random", action="store_true", help="random agent")
     ap.add_argument("--agent-seat", type=int, default=0, choices=[0, 1])
     ap.add_argument("--overlay", action="store_true",

@@ -42,7 +42,10 @@ def test_package_imports_no_jax():
         "hex_gym_env_tpu_torch.parallel.mesh, hex_gym_env_tpu_torch.parallel.distributed, "
         "hex_gym_env_tpu_torch.scripts.train, hex_gym_env_tpu_torch.scripts.export_agent, "
         "hex_gym_env_tpu_torch.scripts.train_legacy, hex_gym_env_tpu_torch.scripts.play_cli, "
-        "hex_gym_env_tpu_torch.scripts.play_gui, hex_gym_env_tpu_torch.__graft_entry__\n"
+        "hex_gym_env_tpu_torch.scripts.play_gui, hex_gym_env_tpu_torch.__graft_entry__, "
+        "hex_gym_env_tpu_torch.scripts.selftest, hex_gym_env_tpu_torch.scripts.verify_train, "
+        "hex_gym_env_tpu_torch.scripts.breakdown_bench, "
+        "hex_gym_env_tpu_torch.scripts.scaling_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r "
         "or m == 'hex_gym_env_tpu' or m.startswith('hex_gym_env_tpu.'))\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
@@ -107,14 +110,16 @@ def test_surfaces_without_device_need_cuda():
 
 
 def test_entry_points_without_device_need_cuda(tmp_path, monkeypatch):
-    """The training, export, legacy, CLI and GUI entry points and the graft
-    entry run on cuda unless asked for the CPU, and raise where it is absent."""
+    """The training, export, legacy, CLI and GUI entry points, the verify
+    and measure tools and the graft entry run on cuda unless asked for the
+    CPU, and raise where it is absent."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
     from hex_gym_env_tpu_torch.__graft_entry__ import dryrun_multichip, entry
     from hex_gym_env_tpu_torch.parallel import make_mesh
-    from hex_gym_env_tpu_torch.scripts import (export_agent, play_cli, play_gui, train,
-                                               train_legacy)
+    from hex_gym_env_tpu_torch.scripts import (breakdown_bench, export_agent, play_cli, play_gui,
+                                               scaling_bench, selftest, train, train_legacy,
+                                               verify_train)
 
     monkeypatch.chdir(tmp_path)
     tiny = ["--experiment", "3x3_MLP-default_lr-0.0003", "--n-envs", "2", "--n-steps", "4",
@@ -123,7 +128,9 @@ def test_entry_points_without_device_need_cuda(tmp_path, monkeypatch):
                  lambda: export_agent.main(["--experiment", "3x3_MLP-default_lr-0.0003"]),
                  lambda: train_legacy.main(["--bursts", "1"]), lambda: play_cli.CliGame(3),
                  lambda: play_gui.build(3, "random"), entry, make_mesh,
-                 lambda: dryrun_multichip(1)):
+                 lambda: dryrun_multichip(1), lambda: selftest.main([]),
+                 lambda: verify_train.main([]), lambda: breakdown_bench.main([]),
+                 lambda: scaling_bench.main(["--devices", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     import torch.distributed as dist

@@ -1,6 +1,8 @@
 """The port's remaining entry points against the JAX package's, on the CPU:
 ``scripts/train.py`` (the preset list, a tiny run, ``--resume``,
-``--seed-pool``, ``--multichip`` in one process), ``export_agent.py``,
+``--seed-pool``, ``--multichip`` in one process), ``export_agent.py`` (with
+the JAX script's shape flags), ``--checkpoint`` as a bare orbax directory or
+``params:`` file for ``play_cli.py`` and ``play_gui.py``,
 ``train_legacy.py`` (against a numpy replay of its pool protocol),
 ``play_cli.py`` (the sessions of ``tests/test_play_cli.py``; ``genmove``'s
 logits against the JAX forward of the orbax snapshot), ``play_gui.py``
@@ -26,7 +28,7 @@ from hex_gym_env_tpu.models.loading import load_policy_params as jax_load
 from hex_gym_env_tpu_torch.core import env as hex_env
 from hex_gym_env_tpu_torch.experiments import list_experiments
 from hex_gym_env_tpu_torch.models.convert import flax_state_dict
-from hex_gym_env_tpu_torch.models.loading import agent_path, load_policy_params
+from hex_gym_env_tpu_torch.models.loading import agent_path, load_policy_params, spec_from_path
 from hex_gym_env_tpu_torch.scripts import export_agent, play_cli, train, train_legacy
 from hex_gym_env_tpu_torch.utils.checkpoint import CheckpointManager, load_params
 
@@ -116,6 +118,33 @@ def test_train_multichip_on_the_cpu_runs_in_one_process(tmp_path, monkeypatch, c
     assert not dist.is_initialized()  # the script's group of one is gone
     single = _run_dir(tmp_path, "mc").restore()
     assert single.iteration == 2 and single.carry.agent_seat.shape == (8,)
+
+
+def test_export_agent_takes_the_jax_shape_flags(tmp_path, monkeypatch, capsys):
+    """The JAX usage line's flags (``scripts/export_agent.py:9-11``): the
+    shapes that match the checkpoint export; ``--n-steps`` and
+    ``--minibatch-size`` are never refused; a mismatched ``--n-envs`` exits
+    naming both values."""
+    monkeypatch.chdir(tmp_path)
+    train.main(TINY + ["--total-timesteps", str(PER_ITER), "--model-name", "7x7_vs_ref"])
+    state = _run_dir(tmp_path, "7x7_vs_ref").restore()
+    base = ["--experiment", "5x5_MLP-default_lr-0.0003", "--model-name", "7x7_vs_ref",
+            "--step", str(PER_ITER), "--cpu"]
+    for n_steps, mbs in (("4", "16"), ("128", "1024")):
+        out = str(tmp_path / f"agent_{n_steps}.pt")
+        path = export_agent.main(base + ["--n-envs", "8", "--n-steps", n_steps,
+                                         "--minibatch-size", mbs, "--out", out])
+        assert path == out
+        exported = load_params(path)
+        assert all(torch.equal(exported[k], state.params[k]) for k in state.params)
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as e:
+        export_agent.main(base + ["--n-envs", "512", "--n-steps", "128",
+                                  "--minibatch-size", "1024", "--out", str(tmp_path / "x.pt")])
+    assert e.value.code != 0
+    err = capsys.readouterr().err
+    assert "--n-envs 512" in err and "holds 8 envs" in err
+    assert not os.path.exists(tmp_path / "x.pt")
 
 
 def test_train_flags_map_to_the_jax_overrides():
@@ -222,6 +251,49 @@ def test_genmove_logits_match_the_jax_forward_of_the_orbax_snapshot():
     assert ok and move[0] in "abcdefg" and 1 <= int(move[1:]) <= 7
     assert play_cli.policy_spec("r.zip", None) == "sb3:r.zip"
     assert play_cli.policy_spec(None, None) == "random"
+
+
+ORBAX_7X7 = os.path.join(REPO, "models", "7x7_strict_sb3", "agent_9437184")
+
+
+def test_spec_from_path_maps_bare_paths():
+    assert spec_from_path(ORBAX_7X7) == f"orbax:{ORBAX_7X7}"
+    assert spec_from_path(agent_path(7)) == f"params:{agent_path(7)}"
+    for spec in (f"params:{agent_path(7)}", f"orbax:{ORBAX_7X7}", "random", "sb3:r.zip"):
+        assert spec_from_path(spec) == spec
+    assert play_cli.policy_spec(None, ORBAX_7X7) == f"orbax:{ORBAX_7X7}"
+    assert play_cli.policy_spec(None, agent_path(7)) == f"params:{agent_path(7)}"
+
+
+def test_play_cli_takes_a_bare_directory_and_a_bare_file():
+    """A bare orbax directory (what the JAX script takes) and a bare params:
+    file play the same agent as its prefixed spec."""
+    for bare in (ORBAX_7X7, agent_path(7)):
+        want = play_cli.CliGame(7, checkpoint=f"params:{agent_path(7)}", device="cpu")
+        game = play_cli.CliGame(7, checkpoint=bare, device="cpu")
+        assert all(torch.equal(game.params[k], want.params[k]) for k in want.params)
+        for cmd in ("play b d4", "genmove w", "play b c3", "genmove w"):
+            assert game.respond(cmd) == want.respond(cmd)
+
+
+def test_play_gui_takes_a_bare_directory_and_a_bare_file(monkeypatch):
+    from hex_gym_env_tpu_torch.scripts import play_gui
+
+    class Built(Exception):
+        pass
+
+    def build(board_size, spec, agent_seat, overlay, device):
+        _, params = load_policy_params(spec, board_size, device=device)
+        raise Built(spec, params)
+
+    monkeypatch.setattr(play_gui, "build", build)
+    _, want = load_policy_params(f"params:{agent_path(7)}", 7, device="cpu")
+    for bare, kind in ((ORBAX_7X7, "orbax"), (agent_path(7), "params")):
+        with pytest.raises(Built) as e:
+            play_gui.main(["--board-size", "7", "--checkpoint", bare, "--cpu"])
+        spec, params = e.value.args
+        assert spec == f"{kind}:{bare}"
+        assert all(torch.equal(params[k], want[k]) for k in want)
 
 
 def test_play_gui_builds_headless_and_plays_a_move(monkeypatch):

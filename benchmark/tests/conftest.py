@@ -1,0 +1,30 @@
+"""The benchmark's tests.  Those that need a CUDA card carry the ``chip``
+marker and take the ``cuda_device`` fixture, which skips where there is
+none; run them on the card with ``python -m pytest benchmark/tests -m chip``."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA card; skips without one")
+
+
+@pytest.fixture
+def cuda_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def root():
+    return ROOT

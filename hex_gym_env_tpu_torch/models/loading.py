@@ -29,6 +29,7 @@ import torch
 
 from hex_gym_env_tpu_torch.models import make_policy
 from hex_gym_env_tpu_torch.models.convert import flax_state_dict
+from hex_gym_env_tpu_torch.utils import profiling
 from hex_gym_env_tpu_torch.utils.device import resolve_device
 
 AGENTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "agents")
@@ -92,27 +93,33 @@ def load_policy_params(spec: str, board_size: int, model=None, family: str = "ML
     ``family`` picks the architecture (``models.make_policy`` names) when no
     ``model`` is given — needed for non-MLP snapshots (e.g. CNN)."""
     device = resolve_device(device)
+    profiling.count("policy_loads")
     n = board_size
-    if model is None:
-        model = make_policy(family, n * n)
-    template = model.state_dict()
+    with profiling.span("load.template"):
+        if model is None:
+            model = make_policy(family, n * n)
+        template = model.state_dict()
     if spec == "random":
-        return model, {k: torch.zeros_like(v, device=device) for k, v in template.items()}
+        with profiling.span("load.h2d"):
+            return model, {k: torch.zeros_like(v, device=device) for k, v in template.items()}
     kind, _, path = spec.partition(":")
-    if kind == "sb3":
-        from hex_gym_env_tpu_torch.models.sb3_import import sb3_to_mlp_params
+    with profiling.span("load.read"):
+        if kind == "sb3":
+            from hex_gym_env_tpu_torch.models.sb3_import import sb3_to_mlp_params
 
-        sd = flax_state_dict(sb3_to_mlp_params(path))
-    elif kind == "orbax":
-        sd = flax_state_dict(read_orbax_tree(path))
-    elif kind == "params":
-        from hex_gym_env_tpu_torch.utils.checkpoint import load_params
+            sd = flax_state_dict(sb3_to_mlp_params(path))
+        elif kind == "orbax":
+            sd = flax_state_dict(read_orbax_tree(path))
+        elif kind == "params":
+            from hex_gym_env_tpu_torch.utils.checkpoint import load_params
 
-        sd = load_params(path, map_location="cpu")
-    else:
-        raise ValueError(f"unknown policy spec: {spec}")
+            sd = load_params(path, map_location="cpu")
+        else:
+            raise ValueError(f"unknown policy spec: {spec}")
     want = {k: tuple(v.shape) for k, v in template.items()}
     got = {k: tuple(v.shape) for k, v in sd.items()}
     if got != want:
         raise ValueError(f"{spec} does not fit a {family} policy at {n}x{n}: {got} vs {want}")
-    return model, {k: v.to(device=device, dtype=template[k].dtype) for k, v in sd.items()}
+    with profiling.span("load.h2d"):
+        return model, {k: profiling.to_device(v, device, template[k].dtype)
+                       for k, v in sd.items()}

@@ -15,8 +15,9 @@ error code comes back the same way), and a non-zero code raises here.
 No fast-math: ``tanhf``, ``logf`` and ``expf`` must be the full-precision
 library versions, or the kernels drift from their PyTorch twins.
 
-``launches`` counts the launches of each kernel, one per call that reached
-the device; ``reset_launches`` zeroes it.  Nothing here runs on import.
+``launches`` reads the launches of each kernel, one per call that reached
+the device, from the counters of ``utils/profiling`` (``launch.<kernel>``);
+``reset_launches`` zeroes them.  Nothing here runs on import.
 """
 
 from __future__ import annotations
@@ -27,9 +28,12 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Mapping
 from pathlib import Path
 
 import torch
+
+from hex_gym_env_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,7 +50,24 @@ KERNELS = (
     "k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
     "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout",
 )
-launches: dict[str, int] = {name: 0 for name in KERNELS}
+_COUNTER = {name: f"launch.{name}" for name in KERNELS}
+
+
+class _Launches(Mapping):
+    """``launches[kernel]``: the ``launch.<kernel>`` counter, for each of
+    ``KERNELS``."""
+
+    def __getitem__(self, name: str) -> int:
+        return profiling.counters.get(_COUNTER[name], 0)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+launches = _Launches()
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -96,8 +117,8 @@ _lib = None
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
+    for key in _COUNTER.values():
+        profiling.counters.pop(key, None)
 
 
 def _nvcc() -> str:
@@ -186,7 +207,7 @@ def launch(kernel: str, entry: str, *args) -> None:
         raise RuntimeError(
             f"{entry} launch failed: {handle.hex_error_string(code).decode()}"
         )
-    launches[kernel] += 1
+    profiling.count(_COUNTER[kernel])
 
 
 def ppo_plan(F: int, H: int, A: int, n_layers: int, mb: int) -> tuple[int, int, int, int, int]:

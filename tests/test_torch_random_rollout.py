@@ -178,10 +178,11 @@ def test_profiling_helpers_on_cpu(tmp_path):
     assert calls == [3] * 6 and out["seconds_per_call"] > 0
     assert out["calls_per_s"] == pytest.approx(1.0 / out["seconds_per_call"])
     with profiling.trace(str(tmp_path / "prof")):
-        with profiling.annotate("hex_region"):
+        with profiling.span("region"):
             torch.ones(8).sum()
     text = (tmp_path / "prof" / "trace.json").read_text()
-    assert "hex_region" in text
+    assert "hex.region" in text
+    assert [r.name for r in profiling.take_spans()] == ["region"]
 
 
 def test_bench_main_tiny_on_cpu(capsys):

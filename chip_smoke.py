@@ -69,7 +69,10 @@
    against a random player through ``scripts/match.run_match`` (``[match]``:
    4096 games in ``a-det`` and ``stochastic`` mode on the same words on the
    card and on the CPU, winners equal but for near ties, K1 at 50 launches a
-   match, seconds and games/s), runs a three-player tournament, and plays
+   match and both sides' forwards through the forward kernel at 100, seconds
+   and games/s), runs a three-player tournament, holds the match's forward
+   kernel against its twin and the benchmark's check (``[mlp forward]``,
+   ``--mlp-only`` below), and plays
    64 random games through ``compat.HexEnv`` on the card (K1 at one game a
    step) against the native engine, every step equal, plus one
    ``HexEnvV0`` and one selfplay-wrapper episode (``[compat]``);
@@ -143,6 +146,13 @@ built (``_build/``, keyed by the sources' hash).
     python3 chip_smoke.py --tools-only
 
 only builds the kernels and runs the ``[tools]`` phase.
+
+    python3 chip_smoke.py --mlp-only
+
+only builds the kernels and runs the ``[mlp forward]`` phase: the match's
+forward kernel against its twin, its times, the benchmark's own check of
+4,096-game 7x7 matches, and a match's host time by span with and without
+the kernel.
 """
 
 from __future__ import annotations
@@ -1254,6 +1264,8 @@ def match_phase(dev) -> dict:
     torch.cuda.synchronize()
     want = dict.fromkeys(cuda_lib.KERNELS, 0)
     want["k1_step"] = topo.num_cells + 1
+    want["mlp_forward"] = 2 * (topo.num_cells + 1)  # both sides bound: one a side each ply
+    want["mlp_image"] = 2
     counts = None
     for mode in ("a-det", "stochastic"):
         rec_k, rec_c = {}, {}
@@ -1321,6 +1333,187 @@ def match_phase(dev) -> dict:
     if not (abs(elo[2] - elo[0]) < se4 and elo[1] < elo[0] - 400):
         fail(f"[tournament] the Elo table is off: {elo} (self-pair gap bound {se4:.1f})")
     return counts
+
+
+# the match's forward kernel at the match's shape, and the benchmark's own
+# check of a 4,096-game 7x7 match on these seeds (benchmark/drivers/match.py)
+FWD_N, FWD_B = 7, 4096
+FWD_JUDGE_SEEDS = (3000001701, 3000001702, 3000001703, 3000001704)
+FWD_SPAN_MATCHES = 10
+
+
+def _match_split(play, matches: int) -> dict:
+    """A match's host time by span, with spans on, no profiler and one torch
+    thread: the means over ``matches`` matches of the match, its plies,
+    loads and binds (ms), and of a ply, its forwards, observe, step, picks
+    and own code (us)."""
+    import torch
+
+    from hex_gym_env_tpu_torch.utils import profiling
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the benchmark runs the match (benchmark/run.py)
+    play()
+    profiling.take_spans()
+    with profiling.tracing(True):
+        for _ in range(matches):
+            play()
+    torch.set_num_threads(threads)
+    t = profiling.span_table(profiling.take_spans())
+    plies = t["match.ply"]["calls"]
+    per_ply = {k: 1e3 * t[k]["total_ms"] / plies
+               for k in ("match.ply", "ply.forward", "ply.observe", "ply.step", "ply.pick")}
+    per_ply["own"] = 1e3 * t["match.ply"]["self_ms"] / plies
+    per_match = {k: t[k]["total_ms"] / matches
+                 for k in ("match", "match.ply", "match.load", "match.bind") if k in t}
+    return {"match_ms": per_match, "ply_us": per_ply}
+
+
+def mlp_forward_phase(dev) -> dict:
+    """``[mlp forward]``: the match's forward kernel (``ops/mlp_forward``):
+    ``scripts.selftest``'s check 7 (against its twin on every MLP family at
+    5x5 to 11x11 on 4,096 boards, the image exact, a 7x7 match's launches,
+    no stale read); its launch shape and times at the match's shape (7x7
+    MLP-default, 4,096 boards) beside its bound, its twin and the eager
+    forward it displaces (``functional_call``: cuBLAS and ATen ops), and
+    the host's time of one forward on each path; the benchmark's own check
+    (``logit_tap`` and ``judge``) of a 4,096-game 7x7 match on each of
+    ``FWD_JUDGE_SEEDS``, 100 launches a match; and a match's host time by
+    span with the kernel and with every side left on ``functional_call``
+    (the path before the kernel).  Returns the kernel table's row."""
+    import types
+    from unittest import mock
+
+    import torch
+
+    from benchmark import harness, work
+    from hex_gym_env_tpu_torch.models import make_policy
+    from hex_gym_env_tpu_torch.ops import cuda_lib, mlp_forward
+    from hex_gym_env_tpu_torch.ops import policy_kernel as pk
+    from hex_gym_env_tpu_torch.scripts import selftest
+    from hex_gym_env_tpu_torch.scripts.match import run_match
+
+    worst = selftest.check_mlp_forward(dev)
+    n, B = FWD_N, FWD_B
+    g = torch.Generator().manual_seed(77)
+    model = make_policy("MLP-default", n * n, generator=g)
+    with torch.no_grad():
+        model.action_head.weight.mul_(100.0)
+    params = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
+    eager = make_policy("MLP-default", n * n)
+    d = pk.mlp_dims(model)
+    if not mlp_forward.bind(model, params):
+        fail("[mlp forward] the MLP-default module did not bind on the card")
+    image = model.bound_forward.image
+    x = torch.randint(-1, 2, (B, n, n), generator=g).to(dev, torch.float32)
+    xf = x.reshape(B, -1)
+    plan = cuda_lib.mlp_forward_plan(d.F, d.H, d.A, d.n_layers, B)
+    flops = 2 * B * (2 * d.F * d.H + 2 * (d.n_layers - 1) * d.H * d.H + d.H * (d.A + 1))
+    nbytes = 4 * (B * d.F + B * (d.A + 1) + mlp_forward.image_floats(d))
+    bound, by = bound_ms(nbytes, flops)
+    with torch.no_grad():
+        def kernel():
+            return mlp_forward.forward(image, d, xf)
+
+        def library():
+            return torch.func.functional_call(eager, params, (x,))
+
+        call = cuda_ms(kernel, 200)
+        dev_ms = device_ms(kernel, ["mlp_forward_kernel"], 50)
+        image_ms = device_ms(lambda: mlp_forward._image_cuda(model, d), ["mlp_image_kernel"], 20)
+        twin = cuda_ms(lambda: mlp_forward.forward_twin(image, d, xf), 200)
+        lib_call = cuda_ms(library, 200)
+        _, lib_busy, lib_top, _ = device_profile(lambda: [library() for _ in range(20)])
+        host_kernel = host_us(lambda: model(x), 500)
+        host_library = host_us(library, 500)
+        err = max(max_err(a, b) for a, b in zip(kernel(), library()))
+    print(f"[mlp forward] plan at {n}x{n}, {B} boards: RT {plan[0]} ({8 * plan[0]} boards a "
+          f"CTA), image in shared memory {bool(plan[1])}, {plan[2]} shared bytes, {plan[3]} CTAs")
+    lib_ops = "; ".join(f"{k[:48]} {v / 20:.2f} us" for k, v in lib_top)
+    print(f"[mlp forward] {n}x{n} MLP-default, {B} boards: call {call:.5f} ms, device "
+          f"{dev_ms:.5f} ms, bound {bound:.5f} ms ({by}: {flops / 1e6:.1f} MFLOP, "
+          f"{nbytes / 1e6:.3f} MB), {100 * bound / dev_ms:.1f}% of it; twin {twin:.5f} ms; the "
+          f"eager forward it displaces (functional_call) {lib_call:.5f} ms a call, device "
+          f"{lib_busy / 20 / 1e3:.5f} ms ({lib_ops}); largest gap to it {err:.3g}; image "
+          f"{image_ms:.5f} ms device")
+    print(f"[mlp forward] host us a forward: module call on the kernel {host_kernel:.1f}, "
+          f"functional_call on the eager path {host_library:.1f}")
+
+    wl = harness.load_json(harness.workload_file("mlp7-match-det"))
+    conf = harness.load_json(harness.HERE / "configs" / "7x7_MLP-default_lr-0.0003.json")
+    drv = harness.load_module(harness.driver_file(wl["driver"]), "smoke_bench_match")
+    bench_model, family = work.model_of(conf), conf["model"]["name"]
+    games, mode, limits = int(wl["games"]), wl["mode"], wl["limits"]
+    judged = {"gap": 0.0, "winner_mismatch": 0, "logit_gap": 0.0}
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = None
+        for seed in FWD_JUDGE_SEEDS:
+            ctx = types.SimpleNamespace(workload=wl, seed=seed, device=dev, run_dir=tmp)
+            (wa, spec_a), (wb, spec_b) = drv.make_agents(ctx, bench_model)
+            specs = specs or (spec_a, spec_b)
+            rec = {}
+            cuda_lib.reset_launches()
+            with drv.logit_tap() as taps:
+                run_match(n, games, spec_a, spec_b, mode=mode, family_a=family, family_b=family,
+                          device=dev, record=rec)
+            launched = cuda_lib.launches["mlp_forward"]
+            if launched != 2 * (n * n + 1) or any(len(t) != n * n + 1 for t in taps):
+                fail(f"[mlp forward] seed {seed}: {launched} launches, taps "
+                     f"{[len(t) for t in taps]}")
+            got = drv.judge(wa, wb, bench_model, mode, games, None, rec["actions"].to(dev),
+                            rec["winners"].to(dev), taps)
+            print(f"[mlp forward] benchmark check, seed {seed}: {got}")
+            if not all(harness.within(v, limits[k]) for k, v in got.items()):
+                fail(f"[mlp forward] seed {seed} fails the benchmark's limits {limits}: {got}")
+            judged = {k: judged[k] + got[k] if k == "winner_mismatch" else max(judged[k], got[k])
+                      for k in judged}
+
+        def play():
+            run_match(n, games, *specs, mode=mode, family_a=family, family_b=family, device=dev)
+
+        after = _match_split(play, FWD_SPAN_MATCHES)
+        with mock.patch.object(mlp_forward, "bind", lambda model, params: False):
+            before = _match_split(play, FWD_SPAN_MATCHES)
+    print(f"[mlp forward] benchmark check over {len(FWD_JUDGE_SEEDS)} seeds: {judged} "
+          f"(limits {limits})")
+    for label, split in (("functional_call (before)", before), ("kernel (after)", after)):
+        match_ms = json.dumps({k: round(v, 3) for k, v in split["match_ms"].items()})
+        ply_us = json.dumps({k: round(v, 1) for k, v in split["ply_us"].items()})
+        print(f"[mlp forward] match split, {label}, means of {FWD_SPAN_MATCHES} matches with "
+              f"spans on: a match (ms) {match_ms}; a ply (us) {ply_us}")
+    return {"name": "mlp_forward", "route": "cuda",
+            "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu",
+            "replaces": None, "launches": 2 * (n * n + 1), "max_abs_err": err,
+            "ms": call, "device_ms": dev_ms, "plain_ms": twin, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_call, "library_device_ms": lib_busy / 20 / 1e3,
+            "image_device_ms": image_ms, "twin_rel_err": worst, "judged": judged,
+            "host_us": {"kernel": host_kernel, "functional_call": host_library},
+            "split": {"before": before, "after": after}}
+
+
+def mlp_only() -> int:
+    import torch
+
+    if not preflight(torch):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twins in full float32
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"device {torch.cuda.get_device_name(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    t0 = time.perf_counter()
+    cuda_lib.build(verbose=True)
+    cuda_lib.lib()
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row = mlp_forward_phase(torch.device("cuda"))
+    print(f"[mlp forward] phase {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"mlp_forward": row}))
+    return 0
 
 
 def compat_phase(dev) -> dict:
@@ -2849,7 +3042,8 @@ def main() -> int:
     t0 = time.perf_counter()
     match_counts = match_phase(dev)
     compat_counts = compat_phase(dev)
-    print(f"[match + compat] phases {time.perf_counter() - t0:.1f} s")
+    mlp_row = mlp_forward_phase(dev)
+    print(f"[match + compat + mlp forward] phases {time.perf_counter() - t0:.1f} s")
 
     # ---- 13. the training entry points, data-parallel training, the scripts -------------
     t0 = time.perf_counter()
@@ -2896,6 +3090,7 @@ def main() -> int:
             "tools_launches": tools_counts[name],
             **({"image_device_ms": k["image_device_ms"]} if "image_device_ms" in k else {}),
         })
+    rows.append(mlp_row)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
@@ -2920,4 +3115,6 @@ if __name__ == "__main__":
         sys.exit(match_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--tools-only":
         sys.exit(tools_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--mlp-only":
+        sys.exit(mlp_only())
     sys.exit(main())

@@ -1,5 +1,6 @@
-// The env and selfplay rollout's kernels (K1-K4, and K7, the random-legal
-// rollout of the env-throughput benchmark) for Hopper (sm_90a), behind a
+// The env and selfplay rollout's kernels (K1-K4, K7, the random-legal
+// rollout of the env-throughput benchmark, and the match's policy forward)
+// for Hopper (sm_90a), behind a
 // plain C interface loaded with ctypes (ops/cuda_lib.py).  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libhexkernels.so hex_kernels.cu
@@ -22,6 +23,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <mutex>
 
 #include "hex_common.cuh"
 
@@ -953,6 +955,288 @@ __global__ void __launch_bounds__(32 * kEnvMaxGames) random_rollout_kernel(Rando
   }
 }
 
+// ===========================================================================
+// The match's policy forward (mlp_forward_kernel, C entry hex_mlp_forward).
+// Replaces no TPU kernel: the JAX package's match calls the model's
+// forward, which XLA compiles whole.  Added because the port's eager
+// forward (torch.func.functional_call, then ten or eleven ATen ops with two
+// cuBLAS SGEMMs a tower) cost the match ~370 us of host time a side each
+// ply.  One launch runs both towers of an MlpPolicy on float32 boards
+// (B, F) and writes the raw action logits (B, A) and the value (B,): no
+// mask, no draw (scripts/match.py picks from the logits).
+// Bound: operations, 2 (2 F H + 2 (n_layers - 1) H^2 + H (A + 1)) FLOP a
+// board: 145 MFLOP at 7x7, H = 64, B = 4096, 2.2 us at 67 TFLOP/s; the
+// bytes (boards and logits 0.8 MB each, the 76 KB image) take 0.5 us at
+// 3.35 TB/s.  Design:
+//   - the weights are the side's image, built once a match from the
+//     module's parameters by mlp_image_kernel in K2's agent-image layout
+//     (each layer's n_out rows of n_in weights at row_stride(n_in), then its
+//     biases; the pi tower, then the vf tower).  Where it fits beside the
+//     activations (every board of MLP-default), the whole image goes into
+//     shared memory by bulk copies, layer l of both towers onto transaction
+//     barrier l, as K2 stages its image, so layer 0 runs while the rest is
+//     on its way; else each tower stages one layer at a time with every
+//     thread's 16-byte cp.async;
+//   - a CTA takes R = 8 RT boards (RT 2, 4 or 8: fwd_plan takes the fewest
+//     waves by the occupancy API, then the smallest RT; at 7x7, B = 4,096:
+//     256 CTAs of 16 boards, two an SM), reads its boards coalesced, 16
+//     bytes a thread, and keeps each layer's activations in shared memory,
+//     never in device memory;
+//   - the two towers run side by side, 128 threads each behind a named
+//     barrier of their own, so a layer is one step of both: 3 steps at
+//     MLP-default, the value head beside the action head;
+//   - a layer is a register-tiled product: thread (tc, tr) of its tower's
+//     128 holds RT x 4 sums, rows tr + 8 i and outputs tc + 16 j (64
+//     outputs a pass).  A warp covers 8 rows and 4 neighbouring outputs, so
+//     each step over 4 inputs reads RT float4 of activations (8 rows, 128
+//     bytes) and 4 float4 of weight rows (4 rows), conflict-free (row_stride
+//     keeps 8 neighbouring rows on distinct banks), for 16 RT fmaf;
+//   - each output is one fmaf chain over k = 0, 1, ..., plus the bias, then
+//     tanhf or max(v, 0): float32 throughout, no TF32, no fast math.
+// Measured on one H100 (device time, 7x7 MLP-default, B = 4,096): 12.8 us
+// as kept; 13.5 us with CTAs of 32 boards, one an SM; 16.0 us with the
+// towers one after the other on all 256 threads (RT x 4 tiles of rows 16
+// apart) and 17.0 us with that and the image copied by plain loads and
+// stores.  A CTA's own path sets the floor: 19 CTAs of 16 boards take
+// 9.1 us, the three dependent layers with their loads behind the boards'
+// read and the image's first layer.
+// ===========================================================================
+
+constexpr int kFwdThreads = 256;  // two towers of 128: 16 output lanes x 8 row lanes each
+constexpr int kFwdTowerThreads = 128;
+constexpr int kFwdCols = 4;       // outputs a thread, 16 apart: 64 a pass
+constexpr int kFwdMaxLayers = 8;  // hidden layers a tower, at most
+
+struct FwdArgs {
+  const float* image;  // pi tower's image (ttower_size(m, A)), then the vf tower's
+  Mlp m;
+  const float* x;   // (B, F) boards
+  float* o_logits;  // (B, A)
+  float* o_value;   // (B,)
+  int B;
+  int resident;  // the whole image in shared memory, else one tower-layer a tower at a time
+};
+
+// a CTA's activations (floats): the boards (R rows at row_stride(F)), then
+// two buffers of each tower's hidden units (R rows at row_stride(H))
+__host__ __device__ inline int fwd_act_floats(const Mlp& m, int R) {
+  return R * (hex::row_stride(m.F) + 4 * hex::row_stride(m.H));
+}
+
+// the largest tower-layer of the image: each tower's staging buffer (floats)
+__host__ __device__ inline int fwd_stage_floats(const Mlp& m) {
+  int s = hex::tlayer_size(m.F, m.H);
+  if (m.n_layers > 1) s = s > hex::tlayer_size(m.H, m.H) ? s : hex::tlayer_size(m.H, m.H);
+  return s > hex::tlayer_size(m.H, m.A) ? s : hex::tlayer_size(m.H, m.A);
+}
+
+// the tower's 128 threads wait for each other (named barrier 1 + tower)
+__device__ __forceinline__ void fwd_tower_sync(int tower) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + tower), "r"(kFwdTowerThreads) : "memory");
+}
+
+// n floats (a multiple of 4, both ends 16-byte aligned) into shared memory
+// by one tower's threads (rank 0 .. 127), every 16-byte copy in flight
+// before any is waited for; the caller's barrier then publishes them
+__device__ __forceinline__ void fwd_stage(float* dst, const float* src, int n, int rank) {
+  for (int q = 4 * rank; q < n; q += 4 * kFwdTowerThreads) cp_async16(dst + q, src + q);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One layer of one tower for the CTA's 8 RT rows, by the tower's 128
+// threads (rank 0 .. 127): out[r * out_stride + c] = v, v the bias c plus
+// the fmaf chain of in[r][k] w[c][k] over k = 0 .. n_in - 1, then activated
+// (relu >= 0: relu or tanh; -1: a head, left as it is); in has row stride
+// row_stride(n_in) with zero pads, w is one layer of the image.  Rows from
+// `rows` on are not written.
+template <int RT>
+__device__ inline void fwd_dense(int rank, const float* in, int n_in, const float* w, int n_out,
+                                 int relu, float* out, int out_stride, int rows) {
+  const int lane = rank & 31, wid = rank >> 5;
+  const int tc = 4 * wid + (lane & 3), tr = lane >> 2;
+  const int S = hex::row_stride(n_in), in4 = hex::round4(n_in);
+  const float* bias = w + n_out * S;
+  for (int c0 = 0; c0 + tc < n_out; c0 += 16 * kFwdCols) {
+    const float* wr[kFwdCols];
+#pragma unroll
+    for (int j = 0; j < kFwdCols; ++j) wr[j] = w + min(c0 + tc + 16 * j, n_out - 1) * S;
+    float acc[RT][kFwdCols];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < kFwdCols; ++j) acc[i][j] = 0.0f;
+#pragma unroll 2
+    for (int k = 0; k < in4; k += 4) {
+      float4 a[RT], b[kFwdCols];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = hex::ld4(in + (tr + 8 * i) * S + k);
+#pragma unroll
+      for (int j = 0; j < kFwdCols; ++j) b[j] = hex::ld4(wr[j] + k);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+#pragma unroll
+        for (int j = 0; j < kFwdCols; ++j) {
+          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = tr + 8 * i;
+#pragma unroll
+      for (int j = 0; j < kFwdCols; ++j) {
+        const int c = c0 + tc + 16 * j;
+        if (r < rows && c < n_out) {
+          const float v = acc[i][j] + bias[c];
+          out[static_cast<long long>(r) * out_stride + c] = relu >= 0 ? hex::activate(v, relu) : v;
+        }
+      }
+    }
+  }
+}
+
+template <int RT>
+__global__ void __launch_bounds__(kFwdThreads, 1) mlp_forward_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem_fwd[];
+  constexpr int R = 8 * RT;
+  const Mlp& m = a.m;
+  const int SF = hex::row_stride(m.F), SH = hex::row_stride(m.H), F4 = hex::round4(m.F);
+  float* x = smem_fwd;
+  float* pi0 = x + R * SF;
+  float* pi1 = pi0 + R * SH;
+  float* vf0 = pi1 + R * SH;
+  float* vf1 = vf0 + R * SH;
+  float* wbuf = vf1 + R * SH;  // the image, or a tower-layer of each tower
+  const long long b0 = static_cast<long long>(blockIdx.x) * R;
+  const int rows = static_cast<int>(min(static_cast<long long>(R), a.B - b0));
+  const int vf_off = hex::ttower_size(m, m.A);
+  // resident: one thread puts layer l of both towers in flight onto
+  // transaction barrier l with bulk copies (as K2), so the first layer runs
+  // while the later ones are still on their way
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wbuf + agent_image_floats(m));
+  if (a.resident && threadIdx.x == 0) {
+    for (int l = 0; l <= m.n_layers; ++l) hex::mbar_init(bars + l, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    int off = 0, in = m.F;
+    for (int l = 0; l <= m.n_layers; ++l) {
+      const bool head = l == m.n_layers;
+      const int pi_n = hex::tlayer_size(in, head ? m.A : m.H);
+      const int vf_n = hex::tlayer_size(in, head ? 1 : m.H);
+      hex::mbar_expect_tx(bars + l, 4u * (pi_n + vf_n));
+      hex::bulk_copy(wbuf + off, a.image + off, 4u * pi_n, bars + l);
+      hex::bulk_copy(wbuf + vf_off + off, a.image + vf_off + off, 4u * vf_n, bars + l);
+      off += pi_n;
+      in = m.H;
+    }
+  }
+
+  // the CTA's boards are rows * F consecutive floats: 16 bytes a thread
+  // where they start aligned, the tail one by one; every pad the float4
+  // reads of a layer cover is zero, and so are the rows past B
+  const float* src = a.x + b0 * m.F;
+  const int n = rows * m.F;
+  const int n4 = (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? n / 4 : 0;
+  for (int q = threadIdx.x; q < n4; q += kFwdThreads) {
+    const float4 v = reinterpret_cast<const float4*>(src)[q];
+    const int i = 4 * q;
+    x[(i / m.F) * SF + i % m.F] = v.x;
+    x[((i + 1) / m.F) * SF + (i + 1) % m.F] = v.y;
+    x[((i + 2) / m.F) * SF + (i + 2) % m.F] = v.z;
+    x[((i + 3) / m.F) * SF + (i + 3) % m.F] = v.w;
+  }
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += kFwdThreads) x[(i / m.F) * SF + i % m.F] = src[i];
+  for (int q = threadIdx.x; q < R * F4; q += kFwdThreads) {
+    const int r = q / F4, k = q % F4;
+    if (r >= rows || k >= m.F) x[r * SF + k] = 0.0f;
+  }
+  const int H4 = hex::round4(m.H);
+  for (int q = threadIdx.x; q < R * (H4 - m.H); q += kFwdThreads) {
+    const int o = (q / (H4 - m.H)) * SH + m.H + q % (H4 - m.H);
+    pi0[o] = pi1[o] = vf0[o] = vf1[o] = 0.0f;
+  }
+  __syncthreads();  // the boards, the pads and the barriers' set-up: the only block barrier
+
+  // from here the two towers run side by side, the pi tower on threads
+  // 0 .. 127 and the vf tower on 128 .. 255, each behind its own barrier
+  const int tower = threadIdx.x / kFwdTowerThreads, rank = threadIdx.x % kFwdTowerThreads;
+  const float* tw = (a.resident ? wbuf : a.image) + (tower == 0 ? 0 : vf_off);
+  float* stage = wbuf + tower * fwd_stage_floats(m);
+  float* h0 = tower == 0 ? pi0 : vf0;
+  float* h1 = tower == 0 ? pi1 : vf1;
+  const float* hin = x;
+  int woff = 0, in = m.F;
+  for (int l = 0; l <= m.n_layers; ++l) {
+    const bool head = l == m.n_layers;
+    const int n_out = head ? (tower == 0 ? m.A : 1) : m.H;
+    float* hout = l & 1 ? h1 : h0;
+    const float* w = tw + woff;
+    if (a.resident) {
+      hex::mbar_wait(bars + l, 0);
+    } else {
+      // (the barrier after the previous layer ended its reads of the copy)
+      fwd_stage(stage, w, hex::tlayer_size(in, n_out), rank);
+      fwd_tower_sync(tower);
+      w = stage;
+    }
+    if (head) {
+      float* o = tower == 0 ? a.o_logits + b0 * m.A : a.o_value + b0;
+      fwd_dense<RT>(rank, hin, in, w, n_out, -1, o, tower == 0 ? m.A : 1, rows);
+    } else {
+      fwd_dense<RT>(rank, hin, in, w, n_out, m.relu, hout, SH, R);
+      fwd_tower_sync(tower);  // the layer is written before the next reads it
+    }
+    woff += hex::tlayer_size(in, m.H);
+    hin = hout;
+    in = m.H;
+  }
+}
+
+// The image's source: tower t's (0 pi, 1 vf) layer l (the head at
+// n_layers), nn.Linear's weight (n_out, n_in), element (j, k) at
+// w[j * ws[0] + k * ws[1]], and bias (n_out), element j at b[j * bs]
+struct ImageSrc {
+  const float* w[2][kFwdMaxLayers + 1];
+  const float* b[2][kFwdMaxLayers + 1];
+  long long ws[2][kFwdMaxLayers + 1][2];
+  long long bs[2][kFwdMaxLayers + 1];
+};
+
+// mlp_forward_kernel's image from the module's parameters, once a match:
+// block row blockIdx.y builds tower blockIdx.y.  nn.Linear already keeps a
+// layer as rows of outputs, so each row is copied and padded to
+// row_stride(n_in), the biases to round4(n_out): the values of K2's agent
+// image (tower_image_kernel, from the packing).
+__global__ void mlp_image_kernel(ImageSrc s, Mlp m, float* out) {
+  const int t = blockIdx.y, head = t == 0 ? m.A : 1;
+  float* dst = out + (t == 0 ? 0 : hex::ttower_size(m, m.A));
+  const int total = hex::ttower_size(m, head);
+  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < total; q += gridDim.x * blockDim.x) {
+    int woff = 0, in = m.F;
+    for (int l = 0; l <= m.n_layers; ++l) {
+      const int n_out = l == m.n_layers ? head : m.H, S = hex::row_stride(in);
+      const int sz = hex::tlayer_size(in, n_out);
+      if (q < woff + sz) {
+        const int e = q - woff;
+        float v = 0.0f;
+        if (e < n_out * S) {
+          const int j = e / S, k = e - j * S;
+          if (k < in) v = s.w[t][l][j * s.ws[t][l][0] + k * s.ws[t][l][1]];
+        } else if (e - n_out * S < n_out) {
+          v = s.b[t][l][(e - n_out * S) * s.bs[t][l]];
+        }
+        dst[q] = v;
+        break;
+      }
+      woff += sz;
+      in = m.H;
+    }
+  }
+}
+
 int finish_launch() { return static_cast<int>(cudaGetLastError()); }
 
 // dynamic shared memory a CTA may take on the card (227 KB)
@@ -992,6 +1276,71 @@ int launch_env(void (*kernel)(Args), Args a, int L, void* stream) {
 const void* rollout_fn(int bank_bf16) {
   return bank_bf16 ? reinterpret_cast<const void*>(rollout_kernel<true>)
                    : reinterpret_cast<const void*>(rollout_kernel<false>);
+}
+
+const void* fwd_fn(int rt) {
+  return rt == 2   ? reinterpret_cast<const void*>(mlp_forward_kernel<2>)
+         : rt == 4 ? reinterpret_cast<const void*>(mlp_forward_kernel<4>)
+                   : reinterpret_cast<const void*>(mlp_forward_kernel<8>);
+}
+
+// mlp_forward_kernel's launch shape for B boards on the current device:
+// plan = [RT, resident, shared bytes, CTAs].  For each RT of 2, 4, 8 (CTAs
+// of 8 RT boards): the image whole in shared memory where it fits beside
+// the activations, else one tower-layer of each tower at a time; then the
+// RT whose CTAs need the fewest waves on the card (CTAs resident per SM by
+// the occupancy API), the smallest RT among equals, since more CTAs of
+// fewer boards hide more of each CTA's serial path.  The dynamic
+// shared-memory limit of each instance is raised to its bytes here, and the
+// last plan is kept, so a launch with the same shapes on the same device
+// asks the runtime nothing more.
+cudaError_t fwd_plan(const Mlp& m, int B, int* plan) {
+  if (B < 1 || m.n_layers < 1 || m.n_layers > kFwdMaxLayers) return cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static std::mutex mu;
+  static int last[10] = {-1};  // dev, F, H, A, n_layers, B, then the plan
+  std::lock_guard<std::mutex> lock(mu);
+  const int key[6] = {dev, m.F, m.H, m.A, m.n_layers, B};
+  if (std::equal(key, key + 6, last)) {
+    std::copy(last + 6, last + 10, plan);
+    return cudaSuccess;
+  }
+  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  int best_waves = 0;
+  plan[0] = 0;
+  for (int rt = 2; rt <= 8; rt *= 2) {
+    const int act = fwd_act_floats(m, 8 * rt);
+    const int whole = (agent_staged_floats(m) + act) * 4;  // the image and its barriers
+    const int staged = (2 * fwd_stage_floats(m) + act) * 4;
+    if (staged > kMaxSmem) break;
+    const int bytes = whole <= kMaxSmem ? whole : staged;
+    const void* fn = fwd_fn(rt);
+    if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+        cudaSuccess)
+      return e;
+    int per_sm = 0;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kFwdThreads, bytes)) !=
+        cudaSuccess)
+      return e;
+    if (per_sm < 1) break;
+    const int ctas = (B + 8 * rt - 1) / (8 * rt);
+    const int waves = (ctas + per_sm * n_sm - 1) / (per_sm * n_sm);
+    if (plan[0] == 0 || waves < best_waves) {
+      best_waves = waves;
+      plan[0] = rt;
+      plan[1] = whole <= kMaxSmem;
+      plan[2] = bytes;
+      plan[3] = ctas;
+    }
+  }
+  if (plan[0] == 0) return cudaErrorInvalidValue;
+  // every instance's limit now stands at its own bytes, the chosen one's too
+  std::copy(key, key + 6, last);
+  std::copy(plan, plan + 4, last + 6);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1234,6 +1583,60 @@ int hex_env_plan(int kernel, int B, int L, int* plan) {
   if ((e = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return static_cast<int>(e);
   plan[2] = attr.numRegs;
   return 0;
+}
+
+// The image of mlp_forward_kernel, from the module's parameters: params is
+// a host array of 4 (n_layers + 1) device pointers, for the pi tower then
+// the vf tower each layer's weight and bias, the head last; strides a host
+// array of each layer's three element strides, the weight's two, then the
+// bias's (a parameter need not be contiguous).
+int hex_mlp_image(const void* const* params, const long long* strides, int F, int H, int A,
+                  int n_layers, void* out, void* stream) {
+  if (n_layers < 1 || n_layers > kFwdMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
+  ImageSrc s{};
+  for (int t = 0; t < 2; ++t) {
+    for (int l = 0; l <= n_layers; ++l) {
+      const int i = t * (n_layers + 1) + l;
+      s.w[t][l] = static_cast<const float*>(params[2 * i]);
+      s.b[t][l] = static_cast<const float*>(params[2 * i + 1]);
+      s.ws[t][l][0] = strides[3 * i];
+      s.ws[t][l][1] = strides[3 * i + 1];
+      s.bs[t][l] = strides[3 * i + 2];
+    }
+  }
+  const Mlp m{F, H, A, n_layers, 0};
+  const int blocks = (hex::ttower_size(m, A) + 255) / 256;
+  mlp_image_kernel<<<dim3(blocks, 2), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, m, static_cast<float*>(out));
+  return finish_launch();
+}
+
+int hex_mlp_forward(const void* image, int F, int H, int A, int n_layers, int relu, const void* x,
+                    void* o_logits, void* o_value, int B, void* stream) {
+  FwdArgs a{static_cast<const float*>(image), Mlp{F, H, A, n_layers, relu},
+            static_cast<const float*>(x),     static_cast<float*>(o_logits),
+            static_cast<float*>(o_value),     B,
+            0};
+  int plan[4];
+  const cudaError_t e = fwd_plan(a.m, B, plan);  // raised each instance's shared-memory limit
+  if (e != cudaSuccess) return static_cast<int>(e);
+  a.resident = plan[1];
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan[0] == 2) {
+    mlp_forward_kernel<2><<<plan[3], kFwdThreads, plan[2], st>>>(a);
+  } else if (plan[0] == 4) {
+    mlp_forward_kernel<4><<<plan[3], kFwdThreads, plan[2], st>>>(a);
+  } else {
+    mlp_forward_kernel<8><<<plan[3], kFwdThreads, plan[2], st>>>(a);
+  }
+  return finish_launch();
+}
+
+// hex_mlp_forward's launch shape for B boards, for reports and tests: plan
+// = [RT (8 RT boards a CTA), image whole in shared memory, shared bytes,
+// CTAs].  Launches nothing.
+int hex_mlp_forward_plan(int F, int H, int A, int n_layers, int B, int* plan) {
+  return static_cast<int>(fwd_plan(Mlp{F, H, A, n_layers, 0}, B, plan));
 }
 
 }  // extern "C"

@@ -39,7 +39,10 @@ class MlpPolicy(nn.Module):
     """Separate pi/vf towers + action/value heads.
 
     Call with observations of shape (B, N, N) or (B, N*N), any dtype;
-    returns ``(logits (B, N*N) float32, value (B,) float32)``.
+    returns ``(logits (B, N*N) float32, value (B,) float32)``.  Where
+    ``ops/mlp_forward.bind`` has bound the parameters and built their image,
+    a float32 call with grad disabled on the image's device runs as one
+    kernel launch while the parameters stay as they were bound.
     """
 
     def __init__(
@@ -68,8 +71,14 @@ class MlpPolicy(nn.Module):
         self.vf = tower(self.vf_layers)
         self.action_head = _dense(self.pi_layers[-1], n_actions, ORTHO_ACTION_GAIN, generator)
         self.value_head = _dense(self.vf_layers[-1], 1, ORTHO_VALUE_GAIN, generator)
+        # the forward kernel on an image of the parameters, where
+        # ops/mlp_forward.bind built one: taken while its rule holds
+        self.bound_forward = None
 
     def forward(self, obs: torch.Tensor):
+        bound = self.bound_forward
+        if bound is not None and bound.takes(obs):
+            return bound(obs)
         act = ACTIVATIONS[self.activation]
         x = obs.reshape(obs.shape[0], -1).to(torch.float32)
         pi = x

@@ -1,7 +1,7 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
-The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4 and the
-random-legal rollout K7) and
+The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4, the
+random-legal rollout K7 and the match's policy forward) and
 ``csrc/learner_kernels.cu`` (the learner's K5-K6), with the shared device
 code in ``csrc/hex_common.cuh``, behind a plain C interface.  On first use
 each ``.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once
@@ -48,7 +48,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 KERNELS = (
     "k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
-    "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout",
+    "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout", "mlp_forward", "mlp_image",
 )
 _COUNTER = {name: f"launch.{name}" for name in KERNELS}
 
@@ -110,6 +110,9 @@ _ARGTYPES = {
     "hex_rollout_image_floats": [I] * 5,  # a size: no stream
     "hex_rollout_plan": [I] * 8 + [P],  # launches nothing: no stream
     "hex_env_plan": [I, I, I, P],  # launches nothing: no stream
+    "hex_mlp_image": [P, P, I, I, I, I, P, P],  # pointers, strides (host arrays), dims, out
+    "hex_mlp_forward": [P, I, I, I, I, I, P, P, P, I, P],  # image, dims, x, logits, value, B
+    "hex_mlp_forward_plan": [I] * 5 + [P],  # launches nothing: no stream
 }
 
 _lock = threading.Lock()
@@ -250,6 +253,19 @@ def env_plan(kernel: str, B: int, L: int) -> tuple[int, int, int]:
                                ctypes.addressof(plan))
     if code != 0:
         raise RuntimeError(f"hex_env_plan failed: {handle.hex_error_string(code).decode()}")
+    return tuple(plan)
+
+
+def mlp_forward_plan(F: int, H: int, A: int, n_layers: int, B: int) -> tuple[int, int, int, int]:
+    """The match forward's launch shape on the current device for B boards:
+    ``(RT, resident, shared-memory bytes, CTAs)``: a CTA takes 8 RT boards,
+    and ``resident`` says whether the whole image sits in shared memory
+    (else one tower-layer at a time is staged).  Raises on an error code."""
+    handle = lib()
+    plan = (ctypes.c_int * 4)()
+    code = handle.hex_mlp_forward_plan(F, H, A, n_layers, B, ctypes.addressof(plan))
+    if code != 0:
+        raise RuntimeError(f"hex_mlp_forward_plan failed: {handle.hex_error_string(code).decode()}")
     return tuple(plan)
 
 

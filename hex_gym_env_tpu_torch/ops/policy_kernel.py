@@ -57,6 +57,13 @@ class MlpDims(NamedTuple):
     relu: bool  # else tanh
 
 
+def mlp_dims(model: MlpPolicy) -> MlpDims:
+    """The kernels' dims of an MLP with equal towers of one width
+    (``supported``)."""
+    return MlpDims(F=model.n_actions, H=model.pi_layers[0], A=model.n_actions,
+                   n_layers=len(model.pi_layers), relu=model.activation == "relu")
+
+
 def tower_size(d: MlpDims, out: int) -> int:
     """Floats in one packed tower with an ``out``-wide head."""
     return d.F * d.H + d.H + (d.n_layers - 1) * (d.H * d.H + d.H) + d.H * out + out
@@ -439,13 +446,7 @@ class PolicyOps:
     one ``impl``."""
 
     def __init__(self, model: MlpPolicy, impl: str = "auto"):
-        self.dims = MlpDims(
-            F=model.n_actions,
-            H=model.pi_layers[0],
-            A=model.n_actions,
-            n_layers=len(model.pi_layers),
-            relu=model.activation == "relu",
-        )
+        self.dims = mlp_dims(model)
         self.impl = impl
 
     def pack_agent(self, params) -> torch.Tensor:

@@ -11,22 +11,27 @@ the batch each way) and reports winrates.  Policies: ``--a/--b`` take
 
 Every ply steps all games through ``core.env.make_ops(topo, "auto", device)``:
 the env-step kernel on the card (``num_cells + 1`` launches a match), the
-plain step on the CPU (``--cpu``).  The policies' forwards are the modules'
-own (cuBLAS/cuDNN on the card).  Samples are Gumbel-max draws over 32-bit
-words (``ops/masked.sample``), drawn from a ``torch.Generator`` seeded by
+plain step on the CPU (``--cpu``).  An MLP side on the card is bound once a
+match (``ops/mlp_forward.bind``: its parameters assigned to the module,
+their image built in one launch), and each of its forwards is the module's
+call, one launch of the forward kernel; any other side (a CNN, or any side
+on the CPU) runs ``functional_call`` of its module (cuDNN/cuBLAS on the
+card).  Samples are Gumbel-max draws over 32-bit words
+(``ops/masked.sample``), drawn from a ``torch.Generator`` seeded by
 ``--seed`` or given as ``bits``; the JAX package draws from its own key, so
 a stochastic match agrees with it in distribution, and with injected words
 game for game.
 
 ``run_match`` is instrumented with ``utils/profiling``'s spans: ``match``
 (a root, its unit the match's number in the process), two ``match.load``
-(``load.template``, ``load.read``, ``load.h2d`` inside), a ``match.ply``
-each ply (``ply.observe``, ``ply.forward`` and ``ply.pick`` for each side,
-``ply.step``) and ``match.result``; and it counts ``matches``,
-``host_syncs``, and the loads' ``h2d_bytes``.  ``--profile DIR`` plays the
-match inside ``profiling.trace(DIR)``: it writes ``DIR/trace.json`` with the
-spans as ``hex.*`` ranges and prints, to stderr, a line per span name
-(calls, total and self ms) and the counters.
+(``load.template``, ``load.read``, ``load.h2d`` inside), two
+``match.bind``, a ``match.ply`` each ply (``ply.observe``, ``ply.forward``
+and ``ply.pick`` for each side, ``ply.step``) and ``match.result``; and it
+counts ``matches``, ``host_syncs``, the loads' ``h2d_bytes``, and
+``forwards`` (one a side each ply, whichever path runs).  ``--profile DIR``
+plays the match inside ``profiling.trace(DIR)``: it writes
+``DIR/trace.json`` with the spans as ``hex.*`` ranges and prints, to
+stderr, a line per span name (calls, total and self ms) and the counters.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 from hex_gym_env_tpu_torch.core import env as hex_env
 from hex_gym_env_tpu_torch.core.topology import get_topology
 from hex_gym_env_tpu_torch.models.loading import load_policy_params
-from hex_gym_env_tpu_torch.ops import masked
+from hex_gym_env_tpu_torch.ops import masked, mlp_forward
 from hex_gym_env_tpu_torch.utils import profiling
 from hex_gym_env_tpu_torch.utils.device import resolve_device
 
@@ -58,9 +63,21 @@ def bits_shape(board_size: int, games: int) -> tuple[int, int, int, int]:
     return (cells + 1, 2, games, cells)
 
 
+def _bind(model, params):
+    """``None`` where ``model`` now holds ``params`` and forwards through
+    the kernel (``mlp_forward.bind``: an MLP side on the card), else
+    ``params``, which each forward passes through ``functional_call``."""
+    with profiling.span("match.bind"):
+        return None if mlp_forward.bind(model, params) else params
+
+
 def _forward(model, params, obs):
     with profiling.span("ply.forward"):
-        logits, _ = torch.func.functional_call(model, params, (obs,))
+        profiling.count("forwards")
+        if params is None:
+            logits, _ = model(obs)
+        else:
+            logits, _ = torch.func.functional_call(model, params, (obs,))
     return logits
 
 
@@ -110,6 +127,8 @@ def run_match(board_size: int, games: int, spec_a: str, spec_b: str,
         with profiling.span("match.load"):
             model_b, params_b = load_policy_params(spec_b, board_size,
                                                    family=family_b, device=device)
+        params_a = _bind(model_a, params_a)
+        params_b = _bind(model_b, params_b)
         B = games
         shape = bits_shape(board_size, B)
         if bits is None:

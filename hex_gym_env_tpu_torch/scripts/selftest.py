@@ -22,7 +22,11 @@ Checks, each on the production kernels (their twins with ``--cpu``):
      ``ops/rollout_kernel.verify_rollout_trajectory``;
   5. K5 equals the plain GAE recurrence bitwise (T = 128, B = 256);
   6. K6 fed the ``pallas-fast`` schedule against its twin and against the
-     autograd replay of the same schedule.
+     autograd replay of the same schedule;
+  7. the match's forward kernel (``ops/mlp_forward``) against its twin on
+     every MLP family at boards 5 to 11 (4,096 boards), its image against
+     the twin's exactly, a 7x7 match's launches, and a parameter changed in
+     place after binding, which the module must not read stale.
 
 The seeds are fixed, so a run on the card repeats exactly: a chi-square
 below its 0.001 critical value is a property of the kernels' streams at
@@ -43,8 +47,11 @@ import torch
 from hex_gym_env_tpu_torch.core import env as hex_env
 from hex_gym_env_tpu_torch.core.topology import get_topology
 from hex_gym_env_tpu_torch.models import make_policy
-from hex_gym_env_tpu_torch.ops import gae_kernel, ppo_kernel, rollout_kernel, step_kernel
+from hex_gym_env_tpu_torch.models.loading import agent_path
+from hex_gym_env_tpu_torch.ops import cuda_lib, gae_kernel, mlp_forward, ppo_kernel
+from hex_gym_env_tpu_torch.ops import rollout_kernel, step_kernel
 from hex_gym_env_tpu_torch.ops import policy_kernel as pk
+from hex_gym_env_tpu_torch.scripts.match import run_match
 from hex_gym_env_tpu_torch.train import gae, ppo
 from hex_gym_env_tpu_torch.train.bank import init_bank
 from hex_gym_env_tpu_torch.train.selfplay import SelfplayPPO
@@ -65,6 +72,9 @@ K6_SWEEP_REL = 1e-4  # after the sweep
 # that tests/test_torch_ppo.py holds the sweeps to against optax's (the
 # backward and Adam in another order of operations)
 REPLAY_RTOL, REPLAY_ATOL_SWEEP = 2e-4, 1e-6
+# the forward kernel against its twin: the largest error over the largest
+# output (at least 1), float32 sums in another order than cuBLAS's
+FWD_REL = 1e-5
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -359,6 +369,82 @@ def check_fast_sweep(device, n: int = 256, mbs: int = 64, n_epochs: int = 2) -> 
     return {"twin_step_rel": one[worst], "twin_sweep_rel": sweep[worst_s], "replay_abs": worst_r}
 
 
+# ---------------------------------------------------------------------------
+# 7. the match's forward kernel
+# ---------------------------------------------------------------------------
+
+
+def _forward_err(got, want) -> float:
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+def check_mlp_forward(device, batch: int = 4096, boards=(5, 7, 9, 11), match_games: int = 512,
+                      families=("MLP-default", "MLP-deep", "MLP-wide-deep")) -> float:
+    """7: on every family and board, a module bound on ``device`` (its twin's
+    image on the CPU, where ``bind`` binds nothing): the image equals the
+    twin's, and the module's call equals the twin's forward; a 7x7 match
+    takes the kernel for every forward of both sides; after a parameter is
+    changed in place, the module gives the plain path's output exactly, and
+    bound again, the twin's on the new parameter.  Returns the largest
+    error (``_forward_err``)."""
+    g = torch.Generator().manual_seed(7)
+    cuda = device.type == "cuda"
+    worst = 0.0
+    for family in families:
+        for n in boards:
+            model = make_policy(family, n * n, generator=g)
+            with torch.no_grad():
+                model.action_head.weight.mul_(100.0)  # O(1) logits, as a trained head
+            params = {k: v.detach().to(device) for k, v in model.state_dict().items()}
+            d = pk.mlp_dims(model)
+            twin = mlp_forward.image_twin(params, d)
+            _require(mlp_forward.bind(model, params) == cuda,
+                     f"{family} {n}x{n}: bound {not cuda} on {device.type}")
+            if not cuda:
+                mlp_forward.assign(model, params)
+                model.bound_forward = mlp_forward.BoundForward(model, twin)
+            _require(torch.equal(model.bound_forward.image, twin),
+                     f"{family} {n}x{n}: the image differs from the twin's")
+            x = torch.randint(-1, 2, (batch, n, n), generator=g).to(device, torch.float32)
+            with torch.no_grad():
+                got = model(x)
+            want = mlp_forward.forward_twin(twin, d, x.reshape(batch, -1))
+            err = _forward_err(got, want)
+            _require(err <= FWD_REL, f"{family} {n}x{n}: the forward is off its twin by {err}")
+            worst = max(worst, err)
+            if family == families[0] and n == boards[0]:
+                with torch.no_grad():
+                    model.action_head.bias.add_(0.5)  # in place, after binding
+                    stale = model(x)
+                    bound, model.bound_forward = model.bound_forward, None
+                    plain = model(x)
+                    model.bound_forward = bound
+                _require(all(torch.equal(a, b) for a, b in zip(stale, plain)),
+                         "a parameter changed after binding was read stale")
+                if cuda:
+                    _require(mlp_forward.bind(model, dict(model.state_dict())), "no rebind")
+                    with torch.no_grad():
+                        again = model(x)
+                    twin = mlp_forward.image_twin(model.state_dict(), d)
+                    err = _forward_err(again, mlp_forward.forward_twin(
+                        twin, d, x.reshape(batch, -1)))
+                    _require(err <= FWD_REL, f"bound again, the forward is off by {err}")
+    n = 7
+    cuda_lib.reset_launches()
+    run_match(n, match_games, f"params:{agent_path(n)}", "random", mode="deterministic",
+              device=device)
+    want = 2 * (n * n + 1) if cuda else 0
+    got = (cuda_lib.launches["mlp_forward"], cuda_lib.launches["mlp_image"])
+    _require(got == (want, 2 if cuda else 0),
+             f"a {n}x{n} match launched the forward and image kernels {got} times")
+    print(f"7. the match's forward kernel against its twin on {', '.join(families)} at "
+          f"{', '.join(f'{b}x{b}' for b in boards)} ({batch} boards): largest error {worst:.3g} "
+          f"of the largest output (bound {FWD_REL}); images exact; a {n}x{n} match launched "
+          f"it {got[0]} times; a parameter changed after binding is not read stale: OK")
+    return worst
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -376,12 +462,13 @@ def main(argv=None) -> dict:
     check_replay(device)
     check_gae(device)
     sweep = check_fast_sweep(device)
+    forward_err = check_mlp_forward(device)
     print("selftest PASSED")
     if args.repeats > 0:
         from hex_gym_env_tpu_torch import bench
 
         bench.main(repeats=args.repeats, device=device)
-    return {"chi_square": chi2, "fast_sweep": sweep}
+    return {"chi_square": chi2, "fast_sweep": sweep, "mlp_forward": forward_err}
 
 
 if __name__ == "__main__":

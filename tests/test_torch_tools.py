@@ -74,6 +74,19 @@ def test_selftest_fast_sweep_twin_against_the_autograd_replay():
     assert errs["replay_abs"] < 1e-5
 
 
+def test_selftest_mlp_forward_check_on_the_twin(capsys):
+    # on the CPU the module forwards through the twin's image, and the match
+    # binds nothing
+    assert selftest.check_mlp_forward(CPU, batch=64, match_games=16) == 0.0
+    assert "launched it 0 times" in capsys.readouterr().out
+
+
+def test_selftest_mlp_forward_check_refuses_a_stale_read(monkeypatch):
+    monkeypatch.setattr(selftest.mlp_forward.BoundForward, "current", lambda self: True)
+    with pytest.raises(AssertionError, match="read stale"):
+        selftest.check_mlp_forward(CPU, batch=16, boards=(5,), families=("MLP-default",))
+
+
 def test_selftest_replay_check_refuses_a_wrong_record(monkeypatch):
     real = selftest.rollout_kernel.verify_rollout_trajectory
 

@@ -214,13 +214,14 @@ def test_run_match_spans_and_counters_on_the_cpu():
     recs = profiling.take_spans()
     names = [r.name for r in recs]
     want = {"match": 1, "match.load": 2, "load.template": 2, "load.read": 2, "load.h2d": 2,
-            "match.ply": 26, "ply.observe": 26, "ply.forward": 52, "ply.pick": 52,
-            "ply.step": 26, "match.result": 1}
+            "match.bind": 2, "match.ply": 26, "ply.observe": 26, "ply.forward": 52,
+            "ply.pick": 52, "ply.step": 26, "match.result": 1}
     assert {k: names.count(k) for k in set(names)} == want
     root = names.index("match")
     assert recs[root].parent is None and recs[root].unit is not None
     assert all(r.unit == recs[root].unit for r in recs)
-    parent_of = {"match.load": "match", "match.ply": "match", "match.result": "match",
+    parent_of = {"match.load": "match", "match.bind": "match", "match.ply": "match",
+                 "match.result": "match",
                  "load.template": "match.load", "load.read": "match.load",
                  "load.h2d": "match.load", **{k: "match.ply" for k in PLY_SPANS}}
     for r in recs:
@@ -230,7 +231,8 @@ def test_run_match_spans_and_counters_on_the_cpu():
     assert [r.name for r in recs if r.parent == ply] == [
         "ply.observe", "ply.forward", "ply.pick", "ply.forward", "ply.pick", "ply.step"]
     counters = profiling.take_counters()
-    assert counters == {"matches": 1, "policy_loads": 2}
+    # the CPU binds nothing: every forward is functional_call's, none the kernel's
+    assert counters == {"matches": 1, "policy_loads": 2, "forwards": 52}
     assert not any(k.startswith("launch.") for k in counters)
 
 

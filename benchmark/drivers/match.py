@@ -15,12 +15,20 @@ A sample of the matches, drawn from the seed before the window among its
 first ``check_from``, is recorded as it is played: each game's moves and
 winner (``run_match``'s ``record``) and the logits of every forward of
 both policies (a forward hook on each policy that ``run_match`` loads).
-The other matches run as users call ``run_match``, with no record.  After
-the window the plain reference replays the sampled matches: every game's
-moves and winner, at every ply the gap by which the mover's chosen move
-scores below the best one (its logit, plus the Gumbel noise of its word
-where the mode draws), and the gap between the program's logits and the
-reference's.
+A sampled match that the window did not reach is played, recorded alike,
+after it, outside its numbers.  The other matches run as users call
+``run_match``, with no record.  After the window the plain reference
+replays the sampled matches with the configuration's policy family: every
+game's moves and winner, at every ply the gap by which the mover's chosen
+move scores below the best one (its logit, plus the Gumbel noise of its
+word where the mode draws), and the gap between the program's logits and
+the reference's.  A run that judges fewer than ``check_matches`` matches,
+or none, reads as failed on every number.
+
+A traced run (``--trace 1``) profiles the window's first ``trace_matches``
+matches on the device and, after the window, plays ``SPAN_MATCHES`` more
+inside the program's own ``tracing(True)``, outside every other number, for
+the ``program_span`` readers.
 """
 
 from __future__ import annotations
@@ -37,6 +45,13 @@ from benchmark import harness, weights, work
 from benchmark.reference import env as ref_env
 from benchmark.reference import models as ref_models
 from hex_gym_env_tpu_torch.scripts import match as match_script
+from hex_gym_env_tpu_torch.utils import profiling
+
+SPAN_MATCHES = 10
+# The std of the agents' drawn BatchNorm (``weights.make``): at its start
+# values BatchNorm is all but the identity, and the check could not see a
+# program that ignored its running statistics.
+AGENT_BN_STD = 0.1
 
 
 def words(seed: int, shape, device) -> torch.Tensor:
@@ -84,11 +99,21 @@ def make_agents(ctx, model) -> list:
     agents = []
     for side in ("a", "b"):
         w, _ = weights.make(model, harness.derive_seed(ctx.seed, "agent", side), ctx.device,
-                            wl["init"]["action_gain"], wl["init"]["bias_std"])
+                            wl["init"]["action_gain"], wl["init"]["bias_std"], AGENT_BN_STD)
         path = os.path.join(ctx.run_dir, f"agent_{side}.pt")
         torch.save({k: v.cpu() for k, v in w.items()}, path)
         agents.append((w, f"params:{path}"))
     return agents
+
+
+def program_spans(play, matches: int) -> dict:
+    """The program's span table (``profiling.span_table``) over ``matches``
+    calls of ``play`` inside its ``tracing(True)``."""
+    profiling.take_spans()
+    with profiling.tracing(True):
+        for _ in range(matches):
+            play()
+    return profiling.span_table(profiling.take_spans())
 
 
 def run(ctx) -> harness.Outcome:
@@ -116,10 +141,17 @@ def run(ctx) -> harness.Outcome:
         sut.run_match(n, games, spec_a, spec_b, mode=mode, family_a=family, family_b=family,
                       device=ctx.device, bits=match_bits(i), record=record)
 
+    def checked(i: int) -> dict:
+        rec = {}
+        with logit_tap() as taps:
+            play(i, rec)
+        rec["logits"] = taps
+        return rec
+
     play(-1, {})
     spans = harness.Spans(cuda)
-    trace = harness.Trace(ctx.run_dir, ["match"]) if ctx.trace else None
-    if ctx.trace:
+    trace = harness.Trace(ctx.run_dir, ["match"]) if ctx.trace and cuda else None
+    if trace is not None:
         trace.warm()
         spans.wrap(sut, "run_match", "match")
     harness.check_imports()
@@ -134,11 +166,7 @@ def run(ctx) -> harness.Outcome:
         i = len(spans_s)
         t = time.perf_counter()
         if i in picks:
-            rec = {}
-            with logit_tap() as taps:
-                play(i, rec)
-            rec["logits"] = taps
-            recorded[i] = rec
+            recorded[i] = checked(i)
         else:
             play(i)
         spans_s.append((t, time.perf_counter()))
@@ -154,8 +182,14 @@ def run(ctx) -> harness.Outcome:
     spans.unwrap_all()
     memory_peak = torch.cuda.max_memory_allocated() if cuda else 0
     ctx.log(f"setup {setup_s:.3f} s, {len(spans_s)} matches in {wall:.3f} s")
+    late = sorted(picks - set(recorded))
+    if late:
+        ctx.log(f"matches {late} picked for the check are played after the window")
+    for i in late:
+        recorded[i] = checked(i)
+    table = program_spans(lambda: play(-1), SPAN_MATCHES) if ctx.trace else None
 
-    readings = harness.Readings(kind="match")
+    readings = harness.Readings(kind="match", program_spans=table)
     readings.unit_flops = work.match(model, games)
     clean = [b - a for a, b in spans_s if trace is None or trace.after_stop(a)]
     readings.unit_s = statistics.median(clean) if clean else None
@@ -177,6 +211,9 @@ def run(ctx) -> harness.Outcome:
         numbers = {k: (numbers[k] + got[k]) if k == "winner_mismatch" else max(numbers[k], got[k])
                    for k in numbers}
     ctx.log(f"reference check of matches {sorted(recorded)} {time.perf_counter() - t:.3f} s")
+    if not recorded or len(recorded) < int(wl["check_matches"]):
+        ctx.log(f"{len(recorded)} matches judged of {wl['check_matches']}: failed")
+        numbers = {"gap": float("inf"), "winner_mismatch": games, "logit_gap": float("inf")}
     limits = wl.get("limits", {})
     checks = harness.compared(ctx, numbers, limits)
     failed = sum(1 for v, lim in checks.values() if lim is not None and not harness.within(v, lim))
@@ -204,7 +241,7 @@ def replay(wa: dict, wb: dict, model: work.Model, mode: str, games: int, bits=No
     reference's.  Returns ``actions``, ``winners`` (seat, 3, or -1 while
     live), ``logits`` (A's and B's of each ply), ``gap`` and
     ``logit_gap``."""
-    n, L, A = model.board, len(model.hidden), model.cells
+    n, A = model.board, model.cells
     plies = A + 1
     dev = wa[next(iter(wa))].device
     noisy = draws(mode)
@@ -221,7 +258,7 @@ def replay(wa: dict, wb: dict, model: work.Model, mode: str, games: int, bits=No
             a_moves = to_move == seat_a
             scores = []
             for side, w in enumerate((wa, wb)):
-                logits = ref_models.mlp_policy_logits(w, obs, L, model.activation)
+                logits = ref_models.policy_logits(model, w, obs)
                 if taps is not None:
                     logit_gap = max(logit_gap, float((taps[side][t].double() - logits.double())
                                                      .abs().max()))

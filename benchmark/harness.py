@@ -183,6 +183,13 @@ def mfu(r: "Readings", kind: str):
     return 100.0 * r.unit_flops / r.unit_s / work.PEAK_FLOPS_FP32
 
 
+def program_span_ms(r: "Readings", kind: str, name: str):
+    """Mean milliseconds of the program's own span ``name`` (host clock),
+    over the units of ``kind`` played inside the program's tracing."""
+    row = (r.program_spans or {}).get(name) if r.kind == kind else None
+    return row["total_ms"] / row["calls"] if row and row["calls"] else None
+
+
 @dataclasses.dataclass
 class Readings:
     """What a traced run measured, for the per-layer readers:
@@ -198,7 +205,11 @@ class Readings:
       the iterations or matches it holds;
     - ``unit_flops`` the operations one iteration or match needs
       (``work.py``), ``unit_s`` its median wall time outside the profiled
-      part; ``kind`` is "train" or "match"."""
+      part; ``kind`` is "train" or "match";
+    - ``program_spans``: the program's own span table (``utils/profiling``
+      ``span_table``: calls, total and self milliseconds by span name) over
+      units played after the window inside the program's tracing, or
+      None."""
 
     kind: str
     cuda_ms: dict = dataclasses.field(default_factory=dict)
@@ -211,6 +222,7 @@ class Readings:
     traced_units: Optional[int] = None
     unit_flops: Optional[float] = None
     unit_s: Optional[float] = None
+    program_spans: Optional[dict] = None
 
 
 # -- spans around calls into the program -----------------------------------

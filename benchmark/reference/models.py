@@ -101,23 +101,39 @@ def _batch_norm(params, name: str, x, train: bool, new_stats: dict):
     return (x - mean[:, None, None]) * mul[:, None, None] + params[f"{name}.bn.bias"][:, None, None]
 
 
-def cnn_forward(params, obs: torch.Tensor, n_layers: int = 2, train: bool = False):
-    """``(logits, value)``, and with ``train`` also the new running
-    statistics by name."""
+def _cnn_features(params, obs: torch.Tensor, train: bool, new_stats: dict):
+    """The conv stack, the (H, W, C) flatten and the features layer."""
     B = obs.shape[0]
     n = int(round((obs[0].numel()) ** 0.5))
     x = obs.reshape(B, 1, n, n).to(torch.float32)
-    new_stats: dict = {}
     for name in CONV_LAYERS:
         x = F.conv2d(x, params[f"{name}.conv.weight"], params[f"{name}.conv.bias"], padding=1)
         x = torch.relu(_batch_norm(params, name, x, train, new_stats))
     x = x.permute(0, 2, 3, 1).reshape(B, -1)
-    feats = torch.relu(x @ params["features.weight"].T + params["features.bias"])
+    return torch.relu(x @ params["features.weight"].T + params["features.bias"])
+
+
+def cnn_forward(params, obs: torch.Tensor, n_layers: int = 2, train: bool = False):
+    """``(logits, value)``, and with ``train`` also the new running
+    statistics by name."""
+    new_stats: dict = {}
+    feats = _cnn_features(params, obs, train, new_stats)
     logits, value = _heads(params, _tower(params, "pi", n_layers, torch.relu, feats),
                            _tower(params, "vf", n_layers, torch.relu, feats))
     if train:
         return logits, value, new_stats
     return logits, value
+
+
+def policy_logits(model, params, obs: torch.Tensor):
+    """The action logits of ``model`` (a ``work.Model``) on boards ``obs``:
+    for the MLP ``mlp_policy_logits``; for the CNN the conv stack with
+    BatchNorm on its running statistics, the (H, W, C) flatten, the
+    features layer, the pi tower and the action head."""
+    if model.family == "MLP":
+        return mlp_policy_logits(params, obs, len(model.hidden), model.activation)
+    pi = _tower(params, "pi", len(model.hidden), torch.relu, _cnn_features(params, obs, False, {}))
+    return pi @ params["action_head.weight"].T + params["action_head.bias"]
 
 
 def masked_log_softmax(logits: torch.Tensor, legal: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,10 @@
 look for a card, comes out ``correct`` when the program is sound and not
 ``correct`` with the timed path broken underneath: a sweep that hands back
 its state unchanged, a sweep over half of the batch, a move altered where
-the rollout or the match produces it, a match's winner altered."""
+the rollout or the match produces it, a match's winner altered, the CNN's
+BatchNorm run without its running statistics.  The match runs with the
+MLP at 7x7 and with the CNN at 5x5, its agents' BatchNorm drawn (the match
+driver's ``AGENT_BN_STD``)."""
 
 import time
 
@@ -34,17 +37,27 @@ TRAIN_CELLS = {
                    "stats_median": 0.08}}),
 }
 MATCH = {"games": 64, "check_from": 1, "check_matches": 1}
+# the match's policies: (configuration, board, the workload's ``init``)
+POLICIES = {
+    "mlp7": (MLP7, None, {"action_gain": 2.0, "bias_std": 0.1}),
+    "cnn5": ("CNN_lr-0.0003", 5, {"action_gain": 2.0, "bias_std": 0.1}),
+}
+MATCH_CASES = [("mlp7", "deterministic"), ("mlp7", "stochastic"), ("cnn5", "deterministic")]
 
 
 def run_cell(cell: str, config: str, tmp_path, hook=None, small: dict = None, driver=None,
-             **workload):
-    """One run of ``cell`` on the CPU: its workload file where the benchmark
-    has one, else its entry in ``TRAIN_CELLS``, with ``workload`` laid over;
-    ``driver``, where given, is the driver module already loaded."""
+             board: int = None, seconds: float = 1.0, **workload):
+    """One run of ``cell`` on the CPU for ``seconds``: its workload file
+    where the benchmark has one, else its entry in ``TRAIN_CELLS``, with
+    ``workload`` laid over; ``board``, where given, replaces the
+    configuration's board size; ``driver``, where given, is the driver
+    module already loaded."""
     conf = harness.load_json(harness.HERE / "configs" / f"{config}.json")
     if small:
         conf["overrides"] = dict(small)
         conf["train"].update(small)
+    if board is not None:
+        conf["model"]["board_size"] = board
     path = harness.workload_file(cell)
     base = harness.load_json(path) if path.is_file() else \
         {"driver": "train", "init": {"action_gain": 0.01}, **TRAIN_CELLS[cell][1]}
@@ -52,7 +65,7 @@ def run_cell(cell: str, config: str, tmp_path, hook=None, small: dict = None, dr
     if driver is None:
         driver = harness.load_module(harness.driver_file(wl["driver"]),
                                      f"fault_driver_{wl['driver']}")
-    ctx = harness.Context(name=cell, workload=wl, config=conf, seed=2 ** 31 + 11, seconds=1.0,
+    ctx = harness.Context(name=cell, workload=wl, config=conf, seed=2 ** 31 + 11, seconds=seconds,
                           trace=False, t0=time.perf_counter(), device=torch.device("cpu"),
                           run_dir=str(tmp_path), hook=hook)
     return driver.run(ctx)
@@ -120,7 +133,8 @@ def match_fault(kind):
         def run_match(*args, record=None, **kw):
             out = inner(*args, record=record, **kw)
             if record is not None and kind == "move":
-                record["actions"][3, 7] = (record["actions"][3, 7] + 1) % 49
+                cells = record["actions"].shape[0] - 1
+                record["actions"][3, 7] = (record["actions"][3, 7] + 1) % cells
             elif record is not None:
                 record["winners"][11] = 1 - record["winners"][11]
             return out
@@ -130,27 +144,81 @@ def match_fault(kind):
     return hook
 
 
-@pytest.mark.parametrize("mode", ["deterministic", "stochastic"])
-def test_sound_match_is_correct(mode, tmp_path):
-    out = run_cell("mlp7-match-det", MLP7, tmp_path, mode=mode, **MATCH)
+def run_match_cell(policy: str, tmp_path, **kw):
+    """One run of the match cell's workload with ``policy``'s agents."""
+    config, board, init = POLICIES[policy]
+    return run_cell("mlp7-match-det", config, tmp_path, board=board, init=init,
+                    **{**MATCH, **kw})
+
+
+@pytest.mark.parametrize("policy, mode", MATCH_CASES)
+def test_sound_match_is_correct(policy, mode, tmp_path):
+    out = run_match_cell(policy, tmp_path, mode=mode)
     assert all(lim is not None for _, lim in out.checks.values())
     assert out.correct, out.checks
     assert out.checks["logit_gap"][0] < 1e-5, out.checks
 
 
-@pytest.mark.parametrize("mode", ["deterministic", "stochastic"])
+@pytest.mark.parametrize("policy, mode", MATCH_CASES)
 @pytest.mark.parametrize("kind", ["move", "winner"])
-def test_broken_match_is_not_correct(kind, mode, tmp_path):
-    out = run_cell("mlp7-match-det", MLP7, tmp_path, hook=match_fault(kind), mode=mode, **MATCH)
+def test_broken_match_is_not_correct(kind, policy, mode, tmp_path):
+    out = run_match_cell(policy, tmp_path, hook=match_fault(kind), mode=mode)
     assert not out.correct, out.checks
 
 
-@pytest.mark.parametrize("mode", ["deterministic", "stochastic"])
-def test_match_ignoring_the_mask_is_not_correct(mode, tmp_path, monkeypatch):
+@pytest.mark.parametrize("policy, mode", MATCH_CASES)
+def test_match_ignoring_the_mask_is_not_correct(policy, mode, tmp_path, monkeypatch):
     """Both sides pick over unmasked logits: moves onto stones."""
     monkeypatch.setattr(masked, "mask_logits", lambda logits, legal: logits)
-    out = run_cell("mlp7-match-det", MLP7, tmp_path, mode=mode, **MATCH)
+    out = run_match_cell(policy, tmp_path, mode=mode)
     assert not out.correct, out.checks
+
+
+@pytest.mark.parametrize("bn_std, caught", [(None, False), (0.1, True)])
+def test_batch_norm_ignoring_its_statistics(bn_std, caught, tmp_path, monkeypatch):
+    """The program's BatchNorm at inference normalises with mean 0 and
+    variance 1 in place of its running statistics.  With the agents'
+    BatchNorm drawn, as the match driver draws it (``AGENT_BN_STD``), the
+    logits move and ``logit_gap`` fails; at the start values (the constant
+    set to None), where BatchNorm is all but the identity, the fault is
+    blind."""
+    from hex_gym_env_tpu_torch.models import cnn
+
+    inner = cnn.BatchNorm.forward
+
+    def forward(self, x, train):
+        if train:
+            return inner(self, x, train)
+        mul = torch.rsqrt(torch.ones_like(self.var) + cnn.BN_EPS) * self.scale
+        return x * mul[:, None, None] + self.bias[:, None, None], None, None
+
+    monkeypatch.setattr(cnn.BatchNorm, "forward", forward)
+    driver = harness.load_module(harness.driver_file("match"), "fault_driver_match_bn")
+    if bn_std is None:
+        monkeypatch.setattr(driver, "AGENT_BN_STD", None)
+    assert driver.AGENT_BN_STD == bn_std
+    config, board, init = POLICIES["cnn5"]
+    out = run_cell("mlp7-match-det", config, tmp_path, driver=driver, board=board, init=init,
+                   **MATCH)
+    logit_gap, limit = out.checks["logit_gap"]
+    assert out.correct is not caught and (logit_gap > limit) is caught, out.checks
+
+
+def test_picks_the_window_missed_are_judged(tmp_path):
+    """The window closes after its first match; the matches picked among
+    the first four that it did not reach are played and judged after it.
+    A winner flipped in every recorded match shows each judged once."""
+    sound = run_match_cell("mlp7", tmp_path, seconds=0.0, check_from=4, check_matches=2)
+    assert sound.attempted == 1 and sound.correct, sound.checks
+    broken = run_match_cell("mlp7", tmp_path, seconds=0.0, check_from=4, check_matches=2,
+                            hook=match_fault("winner"))
+    assert broken.checks["winner_mismatch"][0] == 2, broken.checks
+
+
+@pytest.mark.parametrize("check_from, check_matches", [(1, 2), (4, 0)])
+def test_a_run_that_judges_too_few_is_not_correct(check_from, check_matches, tmp_path):
+    out = run_match_cell("mlp7", tmp_path, check_from=check_from, check_matches=check_matches)
+    assert not out.correct and out.failed == len(out.checks), out.checks
 
 
 def test_match_judges_a_draw_of_the_top_word(tmp_path, monkeypatch):

@@ -97,6 +97,45 @@ def test_forward_matches_port(spec, n):
     torch.testing.assert_close(value, want_value, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("spec,n", [(MLP, 5), (MLP, 7), (CNN, 5), (CNN, 9)])
+def test_policy_logits_match_port(spec, n):
+    """The match's reference forward: the MLP's is ``mlp_policy_logits`` bit
+    for bit; the CNN's, with BatchNorm drawn (``bn_std``) and on its running
+    statistics, the port's ``CnnPolicy`` logits."""
+    m = model(spec, n)
+    params, _ = weights.make(m, 9, "cpu", action_gain=2.0, bias_std=0.1, bn_std=0.1)
+    obs = torch.randint(-1, 2, (32, n, n), generator=torch.Generator().manual_seed(2))
+    with ref_models.full_float32():
+        logits = ref_models.policy_logits(m, params, obs)
+    if m.family == "MLP":
+        assert torch.equal(logits, ref_models.mlp_policy_logits(params, obs, len(m.hidden),
+                                                                m.activation))
+        return
+    assert not torch.equal(params["conv_in.bn.var"], torch.ones_like(params["conv_in.bn.var"]))
+    want, _ = port_policy(spec, n, params)(obs.float())
+    torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bn_std", [None, 0.1])
+def test_batch_norm_draw(bn_std):
+    """Without ``bn_std`` BatchNorm keeps the start values; with it every
+    one of its tensors is drawn, the variance positive, and the draw is the
+    same from the same seed; every other tensor is as without it."""
+    m = model(CNN, 5)
+    params, trained = weights.make(m, 4, "cpu", action_gain=2.0, bias_std=0.1, bn_std=bn_std)
+    again, _ = weights.make(m, 4, "cpu", action_gain=2.0, bias_std=0.1, bn_std=bn_std)
+    start, _ = weights.make(m, 4, "cpu", action_gain=2.0, bias_std=0.1)
+    bn = {k: v for k, v in params.items() if ".bn." in k}
+    assert len(bn) == 4 * m.conv_layers and "conv_in.bn.mean" not in trained
+    assert all(torch.equal(v, start[k]) for k, v in params.items() if k not in bn)
+    for k, v in bn.items():
+        assert torch.equal(v, again[k])
+        fill = 1.0 if k.endswith((".scale", ".var")) else 0.0
+        assert torch.equal(v, torch.full_like(v, fill)) is (bn_std is None), k
+        if k.endswith(".var"):
+            assert bool((v > 0).all())
+
+
 def test_gae_matches_port():
     g = torch.Generator().manual_seed(4)
     T, B = 16, 8

@@ -6,7 +6,12 @@ standard deviation of ``gain / sqrt(fan_in)``: gain sqrt(2) for hidden
 layers and the convs, ``action_gain`` for the action head (SB3's 0.01 at
 the start of training; near 1 for agents whose logits are of a trained
 agent's size), 1 for the value head; biases ``bias_std``; BatchNorm starts
-at scale 1, bias 0, running mean 0 and variance 1.
+at scale 1, bias 0, running mean 0 and variance 1, as training does.
+``make``'s ``bn_std`` draws BatchNorm as a trained agent's would have
+moved instead: scale 1 + N(0, bn_std), bias and running mean N(0, bn_std),
+running variance exp(N(0, bn_std)).  At the start values BatchNorm at
+inference is all but the identity, so a program that ignored its running
+statistics would agree with the reference.
 """
 
 from __future__ import annotations
@@ -58,10 +63,22 @@ def layout(m: Model, action_gain: float, bias_std: float = 0.0):
     return shapes, scales, tuple(zero), tuple(ones), trained
 
 
-def make(m: Model, seed: int, device, action_gain: float, bias_std: float = 0.0):
-    """``(params, trained names)`` drawn on ``device`` from ``seed``."""
+def make(m: Model, seed: int, device, action_gain: float, bias_std: float = 0.0,
+         bn_std: float = None):
+    """``(params, trained names)`` drawn on ``device`` from ``seed``; with
+    ``bn_std``, BatchNorm drawn after the rest, in one call."""
     import torch
 
     shapes, scales, zero, ones, trained = layout(m, action_gain, bias_std)
     g = torch.Generator(device=device).manual_seed(seed)
-    return harness.make_weights(shapes, scales, g, device, zero, ones), trained
+    params = harness.make_weights(shapes, scales, g, device, zero, ones)
+    bn = [k for k in shapes if ".bn." in k]
+    if bn_std is not None and bn:
+        drawn = torch.randn((len(bn), m.filters), generator=g, device=device) * bn_std
+        for k, row in zip(bn, drawn):
+            if k.endswith(".scale"):
+                row = row + 1.0
+            elif k.endswith(".var"):
+                row = row.exp()
+            params[k] = row
+    return params, trained

@@ -153,6 +153,13 @@ only builds the kernels and runs the ``[mlp forward]`` phase: the match's
 forward kernel against its twin, its times, the benchmark's own check of
 4,096-game 7x7 matches, and a match's host time by span with and without
 the kernel.
+
+    python3 chip_smoke.py --epilogue-only
+
+only builds the kernels and runs the ``[cnn epilogue]`` phase: the CNN
+forward's epilogue kernel bit for bit against its twin at the CNN match's
+shape, its times beside its bound and the ATen chain it displaces, and the
+forward with and without it.
 """
 
 from __future__ import annotations
@@ -636,7 +643,9 @@ def device_profile(fn):
     """Run ``fn`` once under ``torch.profiler``; returns (wall us, device-busy
     us, top kernels by device time, top host ops by self CPU time).  Busy
     time is the union of the device's own events' intervals (kernels,
-    copies): a host op that launches a library's kernels
+    copies; not the ranges of ``record_function``, such as
+    ``utils/profiling``'s ``hex.*`` spans, which the profiler also lays on
+    the device's row): a host op that launches a library's kernels
     (``aten::cudnn_convolution``) carries their device time too, and cuDNN
     runs some convolutions as kernels that overlap, so a sum would count
     time twice."""
@@ -650,16 +659,21 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+
+    def on_device(ev):  # a kernel or a copy, not a range laid on the device's row
+        return (ev.device_type == DeviceType.CUDA and not ev.key.startswith("hex.")
+                and not getattr(ev, "is_user_annotation", False))
+
     device_us, host_us = {}, {}
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
+        if on_device(ev):
             us = getattr(ev, "self_device_time_total", None)
             device_us[ev.key] = us if us is not None else getattr(ev, "self_cuda_time_total", 0.0)
-        else:
+        elif ev.device_type != DeviceType.CUDA:
             host_us[ev.key] = ev.self_cpu_time_total
     busy, end = 0.0, float("-inf")
     for a, b in sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                       if ev.device_type == DeviceType.CUDA):
+                       if on_device(ev)):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
@@ -830,10 +844,11 @@ def bf16_layer_check(got, want):
 def cnn_phase(dev) -> dict:
     """[cnn]: the CNN preset ``CNN_lr-0.0003`` (9x9, full width) on the card.
 
-    Its path takes no kernel of its own: the scan rollout with the env step
-    K1 three times a step, GAE K5 once an iteration, the plain eval loop
-    with K1, and the model's convolutions and products through cuDNN and
-    cuBLAS in full float32 (the package's ``models/cnn.full_float32``; the
+    Its path takes the scan rollout with the env step K1 three times a
+    step, GAE K5 once an iteration, the plain eval loop with K1, and the
+    model's convolutions and products through cuDNN and cuBLAS in full
+    float32, each inference forward's bias, BatchNorm and ReLU as the
+    epilogue kernel (5 launches a forward) (the package's ``models/cnn.full_float32``; the
     phase restores cuDNN's defaults, TF32 allowed and autotuning on, so
     nothing but that scope keeps it there).  Gates; the forward against
     float64 on the CPU; the gathered bank against the dense one, the bf16
@@ -1114,7 +1129,11 @@ def cnn_phase(dev) -> dict:
     torch.cuda.synchronize()
     marks.append((time.perf_counter(), dict(cuda_lib.launches)))
     want = dict.fromkeys(cuda_lib.KERNELS, 0)
-    want.update(k1_step=3 * T + 1 + 2 * (F // 2 + 2), k5_gae=1)
+    # the epilogue: 5 launches for each inference forward, the rollout's (the
+    # opening move's logits, T steps, the bootstrap value) and the eval's
+    # (F // 2 + 2 agent moves); the learner's train=True forwards run eager
+    want.update(k1_step=3 * T + 1 + 2 * (F // 2 + 2), k5_gae=1,
+                cnn_epilogue=len(cnn.CONV_LAYERS) * ((1 + T + 1) + (F // 2 + 2)))
     for i in range(3):
         got = {k: marks[i + 1][1][k] - marks[i][1][k] for k in cuda_lib.KERNELS}
         if got != want:
@@ -1513,6 +1532,146 @@ def mlp_only() -> int:
     row = mlp_forward_phase(torch.device("cuda"))
     print(f"[mlp forward] phase {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"mlp_forward": row}))
+    return 0
+
+
+# ---- the CNN forward's epilogue ----------------------------------------------------------
+
+EPI_N, EPI_B = 9, 4096  # the CNN match's boards
+EPI_REPS = 200
+
+
+def epilogue_phase(dev) -> dict:
+    """``[cnn epilogue]``: the CNN forward's epilogue kernel
+    (``ops/cnn_epilogue``) at the CNN match's shape (9x9, 4,096 boards, 64
+    channels, BatchNorm drawn): bit for bit its twin (the eager chain's ATen
+    ops) in place and in (H, W, C) order; the call and device times of both
+    forms beside the bound by bytes, the twin and the ATen chain it
+    displaces (the conv's bias add, BatchNorm's three ops and the ReLU, and
+    after the last layer the flatten's copy); and the CNN match's forward
+    (``CnnPolicy``, grad off) with the kernel and on the eager chain, bit for
+    bit, its time by CUDA events and its device ops.  Returns the kernel
+    table's row, its launches those counted in one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from hex_gym_env_tpu_torch.models import cnn, make_policy
+    from hex_gym_env_tpu_torch.ops import cnn_epilogue, cuda_lib
+
+    n, B, C = EPI_N, EPI_B, 64
+    g = torch.Generator().manual_seed(2020)
+    model = make_policy("CNN", n * n, generator=g)
+    with torch.no_grad():
+        for name in cnn.CONV_LAYERS:  # drawn as the benchmark's match cells draw their agents
+            layer = getattr(model, name)
+            noise = torch.randn((5, C), generator=g) * 0.1
+            layer.conv.bias.copy_(noise[0])
+            layer.bn.scale.copy_(1.0 + noise[1])
+            layer.bn.bias.copy_(noise[2])
+            layer.bn.mean.copy_(noise[3])
+            layer.bn.var.copy_(torch.exp(noise[4]))
+    model = model.to(dev)
+    boards = torch.randint(-1, 2, (B, n, n), generator=g).to(dev, torch.float32)
+    layer = model.block1_a
+    bn = layer.bn
+    with torch.no_grad(), cnn.full_float32():
+        x = torch.relu(torch.randn((B, C, n, n), generator=g).to(dev))
+        y = F.conv2d(x, layer.conv.weight, None, padding=1)
+        args = (layer.conv.bias, bn.mean, bn.mul(bn.var), bn.bias)
+        want = cnn_epilogue.epilogue_twin(y, *args)
+        bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+        got = cnn_epilogue.epilogue(y.clone(), *args)
+        hwc = cnn_epilogue.epilogue(y, *args, hwc=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(got), bits(want)) and torch.equal(bits(hwc), bits(want))
+                and hwc.permute(0, 2, 3, 1).is_contiguous()):
+            fail("[cnn epilogue] the kernel is not its twin bit for bit at the match's shape")
+        work = y.clone()
+
+        def eager_chain():  # what the eager forward runs after the conv
+            out, _, _ = bn(work + layer.conv.bias[:, None, None], False)
+            return torch.relu(out)
+
+        def eager_chain_hwc():
+            out = eager_chain()
+            return out.permute(0, 2, 3, 1).reshape(B, -1)
+
+        nbytes = 2 * 4 * B * C * n * n + 4 * 4 * C
+        bound, by = bound_ms(nbytes, 0)
+        times = {}
+        for label, kernel, twin, library in (
+                ("nchw", lambda: cnn_epilogue.epilogue(work, *args),
+                 lambda: cnn_epilogue.epilogue_twin(work, *args), eager_chain),
+                ("hwc", lambda: cnn_epilogue.epilogue(work, *args, hwc=True),
+                 lambda: cnn_epilogue.epilogue_twin(work, *args, hwc=True), eager_chain_hwc)):
+            call = cuda_ms(kernel, EPI_REPS)
+            dev_ms = device_ms(kernel, ["cnn_epilogue_kernel"], 50)
+            lib_call = cuda_ms(library, EPI_REPS)
+            _, lib_busy, lib_top, _ = device_profile(lambda: [library() for _ in range(20)])
+            times[label] = {"call": call, "device": dev_ms, "twin": cuda_ms(twin, EPI_REPS),
+                            "library": lib_call, "library_device": lib_busy / 20 / 1e3}
+            lib_ops = "; ".join(f"{k[:48]} {v / 20:.2f} us" for k, v in lib_top)
+            print(f"[cnn epilogue] {label}, {n}x{n}, {B} boards, {C} channels: call {call:.5f} ms, "
+                  f"device {dev_ms:.5f} ms, bound {bound:.5f} ms ({by}: {nbytes / 1e6:.1f} MB), "
+                  f"{100 * bound / dev_ms:.1f}% of it, {nbytes / dev_ms / 1e9:.3f} TB/s; twin "
+                  f"{times[label]['twin']:.5f} ms; the ATen chain it displaces {lib_call:.5f} ms "
+                  f"a call, device {lib_busy / 20 / 1e3:.5f} ms ({lib_ops})")
+
+        fused_fwd = lambda: model(boards)  # noqa: E731
+        fuses = cnn.CnnPolicy._fuses
+        cuda_lib.reset_launches()
+        logits, value = fused_fwd()
+        torch.cuda.synchronize()
+        per_forward = cuda_lib.launches["cnn_epilogue"]
+        if per_forward != len(cnn.CONV_LAYERS):
+            fail(f"[cnn epilogue] a forward launched {dict(cuda_lib.launches)}")
+        fwd_ms = cuda_ms(fused_fwd, 50)
+        _, fwd_busy, fwd_top, _ = device_profile(lambda: [fused_fwd() for _ in range(10)])
+        cnn.CnnPolicy._fuses = lambda self, x, train: False
+        try:
+            e_logits, e_value = fused_fwd()
+            eager_fwd_ms = cuda_ms(fused_fwd, 50)
+            _, eager_busy, eager_top, _ = device_profile(lambda: [fused_fwd() for _ in range(10)])
+        finally:
+            cnn.CnnPolicy._fuses = fuses
+        if not (torch.equal(logits, e_logits) and torch.equal(value, e_value)):
+            fail("[cnn epilogue] the forward with the kernel is not the eager forward bit for bit")
+    for label, ms, busy, top in (("kernel", fwd_ms, fwd_busy, fwd_top),
+                                 ("eager chain", eager_fwd_ms, eager_busy, eager_top)):
+        ops = "; ".join(f"{k[:48]} {v / 10:.1f} us" for k, v in top)
+        print(f"[cnn epilogue] forward, {label}: {ms:.4f} ms a forward (CUDA events), device "
+              f"busy {busy / 10 / 1e3:.4f} ms ({ops})")
+    t = times["nchw"]
+    return {"name": "cnn_epilogue", "route": "cuda",
+            "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu", "replaces": None,
+            "launches": per_forward, "launches_per": "forward", "max_abs_err": 0.0,
+            "ms": t["call"], "device_ms": t["device"], "plain_ms": t["twin"], "bound_ms": bound,
+            "bound_by": by, "library_ms": t["library"], "library_device_ms": t["library_device"],
+            "hwc": times["hwc"],
+            "forward_ms": {"kernel": fwd_ms, "eager": eager_fwd_ms},
+            "forward_busy_ms": {"kernel": fwd_busy / 10 / 1e3, "eager": eager_busy / 10 / 1e3}}
+
+
+def epilogue_only() -> int:
+    import torch
+
+    if not preflight(torch):
+        return 1
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    t0 = time.perf_counter()
+    cuda_lib.build(verbose=True)
+    cuda_lib.lib()
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row = epilogue_phase(torch.device("cuda"))
+    print(f"[cnn epilogue] phase {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"cnn_epilogue": row}))
     return 0
 
 
@@ -3043,7 +3202,9 @@ def main() -> int:
     match_counts = match_phase(dev)
     compat_counts = compat_phase(dev)
     mlp_row = mlp_forward_phase(dev)
-    print(f"[match + compat + mlp forward] phases {time.perf_counter() - t0:.1f} s")
+    epilogue_row = epilogue_phase(dev)
+    print(f"[match + compat + mlp forward + cnn epilogue] phases "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 13. the training entry points, data-parallel training, the scripts -------------
     t0 = time.perf_counter()
@@ -3091,6 +3252,7 @@ def main() -> int:
             **({"image_device_ms": k["image_device_ms"]} if "image_device_ms" in k else {}),
         })
     rows.append(mlp_row)
+    rows.append(epilogue_row)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
@@ -3117,4 +3279,6 @@ if __name__ == "__main__":
         sys.exit(tools_only())
     if len(sys.argv) == 2 and sys.argv[1] == "--mlp-only":
         sys.exit(mlp_only())
+    if len(sys.argv) == 2 and sys.argv[1] == "--epilogue-only":
+        sys.exit(epilogue_only())
     sys.exit(main())

@@ -1,5 +1,6 @@
 // The env and selfplay rollout's kernels (K1-K4, K7, the random-legal
-// rollout of the env-throughput benchmark, and the match's policy forward)
+// rollout of the env-throughput benchmark, the match's policy forward and
+// the CNN forward's epilogue)
 // for Hopper (sm_90a), behind a
 // plain C interface loaded with ctypes (ops/cuda_lib.py).  Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -540,6 +541,11 @@ __host__ __device__ inline int rollout_game_bytes(const Mlp& m, const Board& g, 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 // The transposed, padded towers of team_mlp_towers: instance 0 the agent's
@@ -1343,6 +1349,187 @@ cudaError_t fwd_plan(const Mlp& m, int B, int* plan) {
   return cudaSuccess;
 }
 
+// ===========================================================================
+// The CNN forward's epilogue (cnn_epilogue_kernel, C entry hex_cnn_epilogue).
+// Replaces no TPU kernel: the JAX package's CNN is one XLA program, which
+// fuses the conv's bias, BatchNorm and ReLU by itself.  Added because the
+// port's eager forward ran them as five ATen passes over each layer's
+// activation (the conv's bias add, BatchNorm's subtract, mul and add, the
+// ReLU) and the flatten's permute as a sixth after the last layer, and
+// 4,096 x 64 x 9 x 9 float32 is 84.9 MB, above the 50 MB L2: each pass a
+// round trip to device memory.  One launch a layer takes the conv's raw
+// output y (B, C, HW), contiguous, and computes per element, in ATen's order
+// and with ATen's roundings (no contraction into an FMA):
+//   relu(((y + conv_bias[c]) - mean[c]) * mul[c] + bn_bias[c])
+// where relu is torch.relu's (clamp_min: a NaN kept, else fmaxf(v, 0)) and
+// mul is torch's rsqrt(var + eps) * scale, computed by the caller; so the
+// output is bit for bit the eager chain's.
+// Bound: bytes, the activation read once and written once: 169.9 MB at
+// B = 4,096, 9x9, C = 64, 50.7 us at 3.35 TB/s.  Design:
+//   - the four (C,) vectors go into shared memory once a CTA, one float4 a
+//     channel;
+//   - the caller (ops/cnn_epilogue.py) passes only what the CNN's convs
+//     give: y and out 16-byte aligned, a board a multiple of 4 floats, and C
+//     a divisor of the CTA's 256 threads (the family's C is 64); the C entry
+//     refuses anything else;
+//   - NCHW (every layer but the last), in place: a thread keeps one
+//     16-byte position q of a board (4 floats), with its elements' channels
+//     and parameters worked out once, and walks the boards b, b + nb, ...,
+//     four loads in flight before their stores; neighbouring threads take
+//     neighbouring positions, so a warp reads and writes 512 contiguous
+//     bytes;
+//   - HWC (the last layer) into a new (B, HW, C) buffer: a CTA stages a
+//     tile of P positions x C channels of one board in shared memory by
+//     4-byte cp.async, a channel row a warp (coalesced), and writes it out
+//     as P C contiguous floats, the epilogue applied there; two buffers, so
+//     the next tile's loads are in flight while one is written.  A thread
+//     writes one channel throughout (C divides the CTA), so it keeps that
+//     channel's parameters.  The tile's row stride is C made odd, so neither
+//     the column writes nor the row reads hit a bank twice.  P is the whole
+//     board where a tile fits in kEpiTileFloats (9x9 at C = 64: 21 KB).
+// ===========================================================================
+
+constexpr int kEpiThreads = 256;
+constexpr int kEpiTileFloats = 6144;  // a HWC tile's floats, at most (24 KB; two a CTA)
+
+struct EpiArgs {
+  const float* y;  // (B, C, HW), the conv's output without its bias
+  const float* conv_bias;
+  const float* mean;
+  const float* mul;
+  const float* bn_bias;
+  float* out;  // NCHW: y itself; HWC: (B, HW, C)
+  int B, C, HW;
+  int nb;  // NCHW: board lanes (a thread walks boards b, b + nb, ...); HWC: P
+};
+
+// one element through the eager chain's four ops and ReLU, each rounded
+__device__ __forceinline__ float epi(float v, float4 p) {
+  v = __fadd_rn(v, p.x);
+  v = __fsub_rn(v, p.y);
+  v = __fmul_rn(v, p.z);
+  v = __fadd_rn(v, p.w);
+  return v != v ? v : fmaxf(v, 0.0f);  // a NaN kept, as ATen's clamp_min
+}
+
+// four elements with their channels' parameters p[0 .. 3]
+__device__ __forceinline__ float4 epi(float4 v, const float4* p) {
+  return make_float4(epi(v.x, p[0]), epi(v.y, p[1]), epi(v.z, p[2]), epi(v.w, p[3]));
+}
+
+template <bool kHwc>
+__global__ void __launch_bounds__(kEpiThreads) cnn_epilogue_kernel(EpiArgs a) {
+  extern __shared__ __align__(16) float4 smem_epi[];  // (C,) parameters, then the HWC tile
+  for (int c = threadIdx.x; c < a.C; c += blockDim.x)
+    smem_epi[c] = make_float4(a.conv_bias[c], a.mean[c], a.mul[c], a.bn_bias[c]);
+  __syncthreads();
+  const long long board = static_cast<long long>(a.C) * a.HW;
+  if constexpr (!kHwc) {
+    const int Q = static_cast<int>(board / 4);  // 16-byte positions a board
+    const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (lane >= static_cast<long long>(Q) * a.nb) return;
+    const int q = static_cast<int>(lane % Q);
+    float4 p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = smem_epi[(4 * q + j) / a.HW];
+    const float4* src = reinterpret_cast<const float4*>(a.y) + q;
+    float4* dst = reinterpret_cast<float4*>(a.out) + q;
+    const long long nb = a.nb;
+    long long b = lane / Q;
+    for (; b + 3 * nb < a.B; b += 4 * nb) {
+      float4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = src[(b + i * nb) * Q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dst[(b + i * nb) * Q] = epi(v[i], p);
+    }
+    for (; b < a.B; b += nb) dst[b * Q] = epi(src[b * Q], p);
+  } else {
+    const int C = a.C, HW = a.HW, P = a.nb, S = C | 1;
+    float* tiles = reinterpret_cast<float*>(smem_epi + C);  // two tiles of P S floats
+    const int per_board = (HW + P - 1) / P;
+    const long long units = static_cast<long long>(a.B) * per_board;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+    // tile u's P positions x C channels into buffer `buf`, channel row c by
+    // warp c mod nw (coalesced), each float to column c of its position's row
+    auto stage = [&](long long u, int buf) {
+      if (u < units) {
+        const int p0 = static_cast<int>(u % per_board) * P, np = min(P, HW - p0);
+        const float* src = a.y + (u / per_board) * board + p0;
+        float* tile = tiles + buf * P * S;
+        for (int c = warp; c < C; c += nw)
+          for (int pp = lane; pp < np; pp += 32)
+            cp_async4(tile + pp * S + c, src + static_cast<long long>(c) * HW + pp);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    // the written float o = pp C + c of a tile, o = threadIdx.x + k blockDim.x:
+    // channel c = threadIdx.x mod C throughout, position pp up by blockDim.x / C
+    const int c = threadIdx.x % C, dp = blockDim.x / C;
+    const float4 prm = smem_epi[c];
+    stage(blockIdx.x, 0);
+    int buf = 0;
+    for (long long u = blockIdx.x; u < units; u += gridDim.x, buf ^= 1) {
+      stage(u + gridDim.x, buf ^ 1);  // the next tile loads while this one is written
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      __syncthreads();
+      const int p0 = static_cast<int>(u % per_board) * P, np = min(P, HW - p0);
+      const float* tile = tiles + buf * P * S;
+      float* dst = a.out + ((u / per_board) * HW + p0) * C;
+      for (int o = threadIdx.x, pp = threadIdx.x / C; o < np * C; o += blockDim.x, pp += dp)
+        dst[o] = epi(tile[pp * S + c], prm);
+      __syncthreads();  // this buffer is read before the stage after next refills it
+    }
+  }
+}
+
+// cnn_epilogue_kernel's launch shape on the current device: plan = [CTAs,
+// shared bytes, nb (NCHW: board lanes) or P (HWC: positions a tile)].  NCHW
+// takes as many threads as fill every SM at its occupancy, Q positions x nb
+// boards (nb at most B); HWC one CTA a tile, at most a full wave.  The last
+// plan of each form is kept, so a launch with the same shapes on the same
+// device asks the runtime nothing more.
+cudaError_t epi_plan(bool hwc, int B, int C, int HW, int* plan) {
+  if (B < 1 || C < 1 || HW < 1) return cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static std::mutex mu;
+  static int last[2][7] = {{-1}, {-1}};  // dev, B, C, HW, then the plan
+  std::lock_guard<std::mutex> lock(mu);
+  const int key[4] = {dev, B, C, HW};
+  if (std::equal(key, key + 4, last[hwc])) {
+    std::copy(last[hwc] + 4, last[hwc] + 7, plan);
+    return cudaSuccess;
+  }
+  const int S = C | 1;
+  const int P = hwc ? std::max(1, std::min(HW, kEpiTileFloats / S)) : 0;
+  const long long bytes = 16LL * C + 2 * 4LL * P * S;
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  const void* fn = hwc ? reinterpret_cast<const void*>(cnn_epilogue_kernel<true>)
+                       : reinterpret_cast<const void*>(cnn_epilogue_kernel<false>);
+  if ((e = allow_smem(fn, static_cast<int>(bytes))) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kEpiThreads,
+                                                         static_cast<size_t>(bytes))) != cudaSuccess)
+    return e;
+  const long long full = static_cast<long long>(std::max(per_sm, 1)) * n_sm;  // CTAs a wave
+  if (hwc) {
+    const long long units = static_cast<long long>(B) * ((HW + P - 1) / P);
+    plan[0] = static_cast<int>(std::min(units, full));
+    plan[2] = P;
+  } else {
+    const long long Q = static_cast<long long>(C) * HW / 4;
+    const long long nb = std::max(1LL, std::min<long long>(B, full * kEpiThreads / Q));
+    plan[0] = static_cast<int>((Q * nb + kEpiThreads - 1) / kEpiThreads);
+    plan[2] = static_cast<int>(nb);
+  }
+  plan[1] = static_cast<int>(bytes);
+  std::copy(key, key + 4, last[hwc]);
+  std::copy(plan, plan + 3, last[hwc] + 4);
+  return cudaSuccess;
+}
 }  // namespace
 
 // ===========================================================================
@@ -1637,6 +1824,33 @@ int hex_mlp_forward(const void* image, int F, int H, int A, int n_layers, int re
 // CTAs].  Launches nothing.
 int hex_mlp_forward_plan(int F, int H, int A, int n_layers, int B, int* plan) {
   return static_cast<int>(fwd_plan(Mlp{F, H, A, n_layers, 0}, B, plan));
+}
+
+
+// The CNN forward's epilogue (cnn_epilogue_kernel) over the conv's output y
+// (B, C, HW) without its bias: with hwc 0 in place, out == y; with hwc 1
+// into out, a new (B, HW, C) buffer.  conv_bias, mean, mul and bn_bias are
+// (C,) each.  y and out 16-byte aligned, C HW a multiple of 4 and C a
+// divisor of 256, else cudaErrorInvalidValue.
+int hex_cnn_epilogue(const void* y, const void* conv_bias, const void* mean, const void* mul,
+                     const void* bn_bias, void* out, int B, int C, int HW, int hwc, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out)) % 16 != 0 ||
+      C < 1 || kEpiThreads % C != 0 || static_cast<long long>(C) * HW % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int plan[3];
+  const cudaError_t e = epi_plan(hwc != 0, B, C, HW, plan);  // raised the shared-memory limit
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const EpiArgs a{static_cast<const float*>(y),    static_cast<const float*>(conv_bias),
+                  static_cast<const float*>(mean), static_cast<const float*>(mul),
+                  static_cast<const float*>(bn_bias), static_cast<float*>(out),
+                  B, C, HW, plan[2]};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hwc) {
+    cnn_epilogue_kernel<true><<<plan[0], kEpiThreads, plan[1], st>>>(a);
+  } else {
+    cnn_epilogue_kernel<false><<<plan[0], kEpiThreads, plan[1], st>>>(a);
+  }
+  return finish_launch();
 }
 
 }  // extern "C"

@@ -25,12 +25,23 @@ TF32 for a float32 conv and may pick weight-gradient algorithms that sum
 with atomics, and neither the tolerances against the JAX package nor the
 bitwise resume would hold.
 
+At inference on the card (``train=False``, float32 on a CUDA device, grad
+off) each layer's conv runs without its bias, and the bias, BatchNorm and
+ReLU follow as one launch of ``ops/cnn_epilogue``'s kernel, bit for bit
+the eager chain; the last layer's launch writes the
+features' (H, W, C) order, so the flatten is a view.  The kernel has no
+backward: the learner's ``train=True`` step, any call with grad on, the
+CPU and float64 run the eager chain (the conv with its bias,
+``BatchNorm.forward``, ``torch.relu``, the flatten's copy).
+
 ``CnnPolicy.forward`` carries ``utils/profiling``'s spans, each with the
-device clock: ``forward.conv`` around each conv (5 a forward),
-``forward.norm`` around each BatchNorm and its ReLU (5 a forward) and
-``forward.dense`` around the flatten, the features layer, the towers and the
-heads (1 a forward).  Outside ``profiling.tracing`` each is the shared
-no-op, so training pays no more than that.
+device clock: ``forward.conv`` around each conv (5 a forward; cuDNN's conv
+alone where the kernel runs, the conv and its bias add where it does not),
+``forward.norm`` around each layer's bias, BatchNorm and ReLU (5 a forward;
+the one launch where the kernel runs, BatchNorm and the ReLU where it does
+not) and ``forward.dense`` around the flatten, the features layer, the
+towers and the heads (1 a forward).  Outside ``profiling.tracing`` each is
+the shared no-op, so training pays no more than that.
 
 The opponent bank runs with BatchNorm folded into the convs (``fold_bn``):
 ``bank_logits`` runs every member as one grouped conv per layer (``groups``
@@ -56,6 +67,7 @@ from hex_gym_env_tpu_torch.models.mlp import (
     ORTHO_VALUE_GAIN,
     _dense,
 )
+from hex_gym_env_tpu_torch.ops import cnn_epilogue
 from hex_gym_env_tpu_torch.utils import profiling
 
 # One constant for the live BatchNorm layers and for ``fold_bn``: torch's
@@ -103,9 +115,14 @@ class BatchNorm(nn.Module):
             new_var = (BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var).detach()
         else:
             mean, var, new_mean, new_var = self.mean, self.var, None, None
-        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        mul = self.mul(var)
         y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y, new_mean, new_var
+
+    def mul(self, var: torch.Tensor) -> torch.Tensor:
+        """The factor by channel after the mean is subtracted:
+        ``rsqrt(var + eps) * scale``."""
+        return torch.rsqrt(var + BN_EPS) * self.scale
 
 
 class ConvBnRelu(nn.Module):
@@ -171,9 +188,18 @@ class CnnPolicy(nn.Module):
         x = obs.reshape(obs.shape[0], 1, n, n).to(self.features.weight.dtype)
         new_stats = {}
         device = x.device
+        fused = self._fuses(x, train)
         with full_float32():
             for name in CONV_LAYERS:
                 layer = getattr(self, name)
+                if fused:
+                    with profiling.span("forward.conv", device=device):
+                        x = F.conv2d(x, layer.conv.weight, None, padding=1)
+                    with profiling.span("forward.norm", device=device):
+                        bn = layer.bn
+                        x = cnn_epilogue.epilogue(x, layer.conv.bias, bn.mean, bn.mul(bn.var),
+                                                  bn.bias, hwc=name == CONV_LAYERS[-1])
+                    continue
                 with profiling.span("forward.conv", device=device):
                     x = layer.conv(x)
                 with profiling.span("forward.norm", device=device):
@@ -183,7 +209,7 @@ class CnnPolicy(nn.Module):
                     new_stats[f"{name}.bn.mean"] = mean
                     new_stats[f"{name}.bn.var"] = var
             with profiling.span("forward.dense", device=device):
-                # flatten in flax's (H, W, C) order
+                # flatten in flax's (H, W, C) order: a view where the kernel wrote it so
                 feats = torch.relu(self.features(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)))
                 pi = feats
                 for layer in self.pi:
@@ -195,6 +221,13 @@ class CnnPolicy(nn.Module):
         if train:
             return logits, value, new_stats
         return logits, value
+
+    def _fuses(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether the forward takes ``ops/cnn_epilogue``'s kernel, which has
+        no backward: at inference, on float32 boards on a CUDA device, with
+        grad off."""
+        return (not train and x.is_cuda and x.dtype == torch.float32
+                and not torch.is_grad_enabled())
 
 
 # ---------------------------------------------------------------------------

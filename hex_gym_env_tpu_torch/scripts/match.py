@@ -15,12 +15,13 @@ plain step on the CPU (``--cpu``).  An MLP side on the card is bound once a
 match (``ops/mlp_forward.bind``: its parameters assigned to the module,
 their image built in one launch), and each of its forwards is the module's
 call, one launch of the forward kernel; any other side (a CNN, or any side
-on the CPU) runs ``functional_call`` of its module (cuDNN/cuBLAS on the
-card).  Samples are Gumbel-max draws over 32-bit words
-(``ops/masked.sample``), drawn from a ``torch.Generator`` seeded by
-``--seed`` or given as ``bits``; the JAX package draws from its own key, so
-a stochastic match agrees with it in distribution, and with injected words
-game for game.
+on the CPU) runs ``functional_call`` of its module (on the card a CNN's
+layers are cuDNN's conv and one launch of the epilogue kernel each,
+``ops/cnn_epilogue``, then cuBLAS).  Samples are Gumbel-max draws over
+32-bit words (``ops/masked.sample``), drawn from a ``torch.Generator``
+seeded by ``--seed`` or given as ``bits``; the JAX package draws from its
+own key, so a stochastic match agrees with it in distribution, and with
+injected words game for game.
 
 ``run_match`` is instrumented with ``utils/profiling``'s spans: ``match``
 (a root, its unit the match's number in the process), two ``match.load``
@@ -114,9 +115,10 @@ def run_match(board_size: int, games: int, spec_a: str, spec_b: str,
 
     Inside ``profiling.tracing(True)`` each ``ply.forward`` span also keeps
     the device's time of the forward (CUDA events, on the card), and a CNN
-    side's holds five ``forward.conv``, five ``forward.norm`` (BatchNorm
-    and ReLU) and one ``forward.dense`` (the flatten, features, towers and
-    heads), each with the device clock too.
+    side's holds five ``forward.conv`` (cuDNN's conv), five
+    ``forward.norm`` (the conv's bias, BatchNorm and ReLU: on the card one
+    launch of the epilogue kernel) and one ``forward.dense`` (the flatten,
+    features, towers and heads), each with the device clock too.
     """
     with profiling.span("match", unit=next(_match_ids)):
         profiling.count("matches")

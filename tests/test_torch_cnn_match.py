@@ -179,7 +179,8 @@ def test_the_cell_finds_its_files_and_reports_its_metrics(monkeypatch):
     assert e2e == {"setup_s", "games_per_s"}
     per_layer = {m["name"] for m in harness.cell_metrics(man, CELL, "per_layer")}
     assert per_layer == {"device_idle_pct.match", "mfu_pct.match", "host_syncs.match",
-                         "h2d_bytes.match", "ply_us.match", "load_ms.match", *READERS}
+                         "h2d_bytes.match", "ply_us.match", "load_ms.match", *READERS,
+                         "epilogue_kernel_pct.match"}
     for trace in ("0", "1"):
         args = run.parse(["--workload", CELL, "--seed", str(2 ** 31 + 1), "--seconds", "1",
                           "--trace", trace])

@@ -105,10 +105,15 @@
    shape (every stage and its roofline), and ``scripts.scaling_bench
    --devices 1 --predict`` in an NCCL group of one (its collectives a train
    step and an eval asserted); a tool's non-zero exit fails the run;
-15. prints the card, a JSON line of per-kernel numbers (with each kernel's
+15. prints a JSON line of per-kernel numbers (with each kernel's
    launches per CNN iteration, per match, over the 64 ``HexEnv`` games, per
    distributed iteration, over the 8 graft actor steps and in the
    ``[tools]`` phase), and the final line ``{"ok": true, "device": {...}}``.
+
+Every run starts alike (``preamble``): the versions, the device, the card's
+name and power limit, both TF32 flags off, the build and its ``[build]``
+line.  Each mode below is one entry of ``MODES``: its arguments and its
+phases, each followed by its time and, for some, its JSON row.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when no
 CUDA device is present or the port's sources are not beside it.
@@ -173,6 +178,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-5  # kernel vs twin: float32 sums in another order (FMA loops vs cuBLAS)
@@ -1398,8 +1404,8 @@ def mlp_forward_phase(dev) -> dict:
     the host's time of one forward on each path; the benchmark's own check
     (``logit_tap`` and ``judge``) of a 4,096-game 7x7 match on each of
     ``FWD_JUDGE_SEEDS``, 100 launches a match; and a match's host time by
-    span with the kernel and with every side left on ``functional_call``
-    (the path before the kernel).  Returns the kernel table's row."""
+    span with the kernel and with no image built, every side on its eager
+    forward.  Returns the kernel table's row."""
     import types
     from unittest import mock
 
@@ -1421,8 +1427,9 @@ def mlp_forward_phase(dev) -> dict:
     params = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
     eager = make_policy("MLP-default", n * n)
     d = pk.mlp_dims(model)
-    if not mlp_forward.bind(model, params):
-        fail("[mlp forward] the MLP-default module did not bind on the card")
+    model.bind(params)
+    if model.bound_forward is None:
+        fail("[mlp forward] the MLP-default module built no image on the card")
     image = model.bound_forward.image
     x = torch.randint(-1, 2, (B, n, n), generator=g).to(dev, torch.float32)
     xf = x.reshape(B, -1)
@@ -1491,11 +1498,11 @@ def mlp_forward_phase(dev) -> dict:
             run_match(n, games, *specs, mode=mode, family_a=family, family_b=family, device=dev)
 
         after = _match_split(play, FWD_SPAN_MATCHES)
-        with mock.patch.object(mlp_forward, "bind", lambda model, params: False):
+        with mock.patch.object(mlp_forward, "kernel_forward", lambda model: None):
             before = _match_split(play, FWD_SPAN_MATCHES)
     print(f"[mlp forward] benchmark check over {len(FWD_JUDGE_SEEDS)} seeds: {judged} "
           f"(limits {limits})")
-    for label, split in (("functional_call (before)", before), ("kernel (after)", after)):
+    for label, split in (("eager forward, no image (before)", before), ("kernel (after)", after)):
         match_ms = json.dumps({k: round(v, 3) for k, v in split["match_ms"].items()})
         ply_us = json.dumps({k: round(v, 1) for k, v in split["ply_us"].items()})
         print(f"[mlp forward] match split, {label}, means of {FWD_SPAN_MATCHES} matches with "
@@ -1508,31 +1515,6 @@ def mlp_forward_phase(dev) -> dict:
             "image_device_ms": image_ms, "twin_rel_err": worst, "judged": judged,
             "host_us": {"kernel": host_kernel, "functional_call": host_library},
             "split": {"before": before, "after": after}}
-
-
-def mlp_only() -> int:
-    import torch
-
-    if not preflight(torch):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # the twins in full float32
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"device {torch.cuda.get_device_name(0)}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    print(f"card: {smi.stdout.strip().splitlines()[0]}")
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=True)
-    cuda_lib.lib()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    row = mlp_forward_phase(torch.device("cuda"))
-    print(f"[mlp forward] phase {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"mlp_forward": row}))
-    return 0
 
 
 # ---- the CNN forward's epilogue ----------------------------------------------------------
@@ -1650,29 +1632,6 @@ def epilogue_phase(dev) -> dict:
             "hwc": times["hwc"],
             "forward_ms": {"kernel": fwd_ms, "eager": eager_fwd_ms},
             "forward_busy_ms": {"kernel": fwd_busy / 10 / 1e3, "eager": eager_busy / 10 / 1e3}}
-
-
-def epilogue_only() -> int:
-    import torch
-
-    if not preflight(torch):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    print(f"card: {smi.stdout.strip().splitlines()[0]}")
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=True)
-    cuda_lib.lib()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    row = epilogue_phase(torch.device("cuda"))
-    print(f"[cnn epilogue] phase {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"cnn_epilogue": row}))
-    return 0
 
 
 def compat_phase(dev) -> dict:
@@ -2243,93 +2202,6 @@ def tools_phase(dev) -> dict:
     return counts
 
 
-def tools_only() -> int:
-    import torch
-
-    if not preflight(torch):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=False)
-    cuda_lib.lib()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    tools_phase(torch.device("cuda"))
-    print(f"[tools] phase {time.perf_counter() - t0:.1f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
-    return 0
-
-
-def train_only() -> int:
-    import torch
-
-    if not preflight(torch):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=False)
-    cuda_lib.lib()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
-    dev = torch.device("cuda")
-    for phase in (train_cli_phase, distributed_phase, scripts_phase):
-        t0 = time.perf_counter()
-        phase(dev)
-        print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
-    return 0
-
-
-def cnn_only() -> int:
-    import torch
-
-    if not preflight(torch):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=False)
-    cuda_lib.lib()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
-    cnn_phase(torch.device("cuda"))
-    return 0
-
-
-def match_only() -> int:
-    import torch
-
-    if not preflight(torch):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=False)
-    cuda_lib.lib()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    match_phase(torch.device("cuda"))
-    compat_phase(torch.device("cuda"))
-    print(f"[match + compat] phases {time.perf_counter() - t0:.1f} s")
-    return 0
-
-
 def preflight(torch, root: str = REPO) -> bool:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2341,45 +2213,10 @@ def preflight(torch, root: str = REPO) -> bool:
     return True
 
 
-def split_only(label: str) -> int:
-    import torch
-
-    if not preflight(torch):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=True)
-    cuda_lib.lib()
-    print(f"[split {label}] kernels built in {time.perf_counter() - t0:.1f} s")
-    phase_splits(label)
-    return 0
-
-
-def env_only(label: str, root: str) -> int:
-    import torch
-
-    if not preflight(torch, root):
-        return 1
-    from hex_gym_env_tpu_torch.ops import cuda_lib
-
-    print(f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    cuda_lib.lib()
-    print(f"[env {label}] kernels built in {time.perf_counter() - t0:.1f} s from "
-          f"{os.path.dirname(cuda_lib.__file__)}")
-    env_kernel_times(label)
-    return 0
-
-
-def main() -> int:
+def main(dev) -> None:
+    """The full run (steps 2 to 15 of the module's docstring)."""
     import numpy as np
     import torch
-
-    if not preflight(torch):
-        return 1
 
     from hex_gym_env_tpu_torch.core import env as hex_env
     from hex_gym_env_tpu_torch.core.topology import get_topology
@@ -2394,17 +2231,6 @@ def main() -> int:
     from hex_gym_env_tpu_torch.train.rollout import SelfplayRunner
     import dataclasses
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the twins in full float32
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    print(f"device {torch.cuda.get_device_name(0)}")
-
-    # ---- 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_lib.build(verbose=True)
-    cuda_lib.lib()
-    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
 
     # ---- shared inputs at the main path's shapes -----------------------------
     cfg = get_config("7x7_MLP-default_lr-0.0003").selfplay
@@ -3253,32 +3079,88 @@ def main() -> int:
         })
     rows.append(mlp_row)
     rows.append(epilogue_row)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def preamble(verbose: bool, root: str = REPO):
+    """What every run does first: the checks of ``preflight``, the versions,
+    the device and the card (its name and power limit), both TF32 flags off
+    (the twins in full float32), and the build of the kernels of the port
+    in ``root`` (``verbose``: with the compiler's register report).
+    Returns the card's device, or None where ``preflight`` refuses."""
+    import torch
+
+    if not preflight(torch, root):
+        return None
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    print(f"device {torch.cuda.get_device_name(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    t0 = time.perf_counter()
+    if verbose:
+        cuda_lib.build(verbose=True)
+    cuda_lib.lib()
+    print(f"[build] kernels built in {time.perf_counter() - t0:.1f} s from "
+          f"{os.path.dirname(cuda_lib.__file__)}")
+    return torch.device("cuda")
+
+
+class Mode(NamedTuple):
+    args: tuple  # the flag's arguments, by name
+    verbose: bool  # the build's register report
+    # each phase: its tag (formatted with the arguments; None prints no
+    # time), its function of the device and the arguments, and the key of
+    # the JSON line of the row it returns (None prints none)
+    phases: tuple
+
+
+MODES = {
+    None: Mode((), True, ((None, main, None),)),
+    "--cnn-only": Mode((), False, (("cnn", cnn_phase, None),)),
+    "--train-only": Mode((), False, (("train cli", train_cli_phase, None),
+                                     ("distributed", distributed_phase, None),
+                                     ("scripts", scripts_phase, None))),
+    "--match-only": Mode((), False, (("match", match_phase, None),
+                                     ("compat", compat_phase, None))),
+    "--tools-only": Mode((), False, (("tools", tools_phase, None),)),
+    "--mlp-only": Mode((), True, (("mlp forward", mlp_forward_phase, "mlp_forward"),)),
+    "--epilogue-only": Mode((), True, (("cnn epilogue", epilogue_phase, "cnn_epilogue"),)),
+    "--split-only": Mode(("LABEL",), True,
+                         (("split {}", lambda dev, label: phase_splits(label), None),)),
+    "--env-kernels": Mode(("LABEL", "ROOT"), False,
+                          (("env {}", lambda dev, label, root: env_kernel_times(label), None),)),
+}
+
+
+def run(argv) -> int:
+    """Run the mode that ``argv`` names (none: the full run)."""
+    flag, *args = argv or [None]
+    mode = MODES.get(flag)
+    if mode is None or len(args) != len(mode.args):
+        usage = " | ".join(" ".join((f, *m.args)) for f, m in MODES.items() if f)
+        print(f"usage: chip_smoke.py [{usage}]", file=sys.stderr)
+        return 2
+    dev = preamble(mode.verbose, dict(zip(mode.args, args)).get("ROOT", REPO))
+    if dev is None:
+        return 1
+    for tag, phase, key in mode.phases:
+        t0 = time.perf_counter()
+        row = phase(dev, *args)
+        if tag is not None:
+            print(f"[{tag.format(*args)}] phase {time.perf_counter() - t0:.1f} s")
+        if key is not None:
+            print(json.dumps({key: row}))
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--split-only":
-        sys.exit(split_only(sys.argv[2]))
-    if len(sys.argv) == 4 and sys.argv[1] == "--env-kernels":
-        sys.exit(env_only(sys.argv[2], sys.argv[3]))
-    if len(sys.argv) == 2 and sys.argv[1] == "--cnn-only":
-        sys.exit(cnn_only())
-    if len(sys.argv) == 2 and sys.argv[1] == "--train-only":
-        sys.exit(train_only())
-    if len(sys.argv) == 2 and sys.argv[1] == "--match-only":
-        sys.exit(match_only())
-    if len(sys.argv) == 2 and sys.argv[1] == "--tools-only":
-        sys.exit(tools_only())
-    if len(sys.argv) == 2 and sys.argv[1] == "--mlp-only":
-        sys.exit(mlp_only())
-    if len(sys.argv) == 2 and sys.argv[1] == "--epilogue-only":
-        sys.exit(epilogue_only())
-    sys.exit(main())
+    sys.exit(run(sys.argv[1:]))

@@ -34,6 +34,12 @@ backward: the learner's ``train=True`` step, any call with grad on, the
 CPU and float64 run the eager chain (the conv with its bias,
 ``BatchNorm.forward``, ``torch.relu``, the flatten's copy).
 
+``CnnPolicy.bind`` takes a state dict, BatchNorm's statistics included, as
+the module's own with no copy (``models/mlp.assign``): the rating match
+binds each side once a match and calls the module; the learner, the
+rollout and the evaluator pass theirs through ``torch.func.functional_call``.
+Either way the same ``forward`` runs on the same tensors.
+
 ``CnnPolicy.forward`` carries ``utils/profiling``'s spans, each with the
 device clock: ``forward.conv`` around each conv (5 a forward; cuDNN's conv
 alone where the kernel runs, the conv and its bias add where it does not),
@@ -66,6 +72,7 @@ from hex_gym_env_tpu_torch.models.mlp import (
     ORTHO_HIDDEN_GAIN,
     ORTHO_VALUE_GAIN,
     _dense,
+    assign,
 )
 from hex_gym_env_tpu_torch.ops import cnn_epilogue
 from hex_gym_env_tpu_torch.utils import profiling
@@ -221,6 +228,12 @@ class CnnPolicy(nn.Module):
         if train:
             return logits, value, new_stats
         return logits, value
+
+    def bind(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Take ``params`` (a state dict, BatchNorm's statistics included)
+        as the module's own with no copy (``models/mlp.assign``).  The
+        epilogue kernel is chosen per call (``_fuses``)."""
+        assign(self, params)
 
     def _fuses(self, x: torch.Tensor, train: bool) -> bool:
         """Whether the forward takes ``ops/cnn_epilogue``'s kernel, which has

@@ -87,8 +87,8 @@ def load_policy_params(spec: str, board_size: int, model=None, family: str = "ML
                        device=None):
     """Returns ``(model, params)`` for ``spec`` at ``board_size``: ``model``
     the policy module (on the CPU), ``params`` its state dict on ``device``
-    (``None`` means ``cuda``), the form the runner, the evaluator and
-    ``torch.func.functional_call`` take.
+    (``None`` means ``cuda``), the form the runner, the evaluator,
+    ``torch.func.functional_call`` and the policies' ``bind`` take.
 
     ``family`` picks the architecture (``models.make_policy`` names) when no
     ``model`` is given — needed for non-MLP snapshots (e.g. CNN)."""

@@ -11,6 +11,11 @@ The counterpart of the JAX package's ``models/mlp.py``:
 
 Parameters follow ``nn.Linear``'s (out, in) layout; ``models/convert.py``
 carries the JAX package's (in, out) flax kernels across.
+
+``assign`` takes a state dict into a policy module with no copy; each
+policy's ``bind`` calls it (the rating match binds each side once a match).
+A bound ``MlpPolicy`` that the forward kernel takes (``ops/mlp_forward``)
+forwards through it while its parameters stay as they were bound.
 """
 
 from __future__ import annotations
@@ -27,6 +32,26 @@ ORTHO_VALUE_GAIN = 1.0
 ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu}
 
 
+def assign(module: nn.Module, state: Mapping[str, torch.Tensor]) -> None:
+    """``module.load_state_dict(state, assign=True)`` for a state dict that
+    names every parameter and buffer of ``module`` and nothing else (as
+    ``load_policy_params`` gives it), without the loader's checks and hooks,
+    which cost ~0.2 ms a call: each parameter becomes an ``nn.Parameter`` on
+    ``state``'s tensor, keeping its ``requires_grad``, and each buffer is
+    ``state``'s tensor; nothing is copied."""
+    params = dict(module.named_parameters())
+    own = params.keys() | dict(module.named_buffers()).keys()
+    if state.keys() != own:
+        raise ValueError(f"params name {sorted(state)}, the module {sorted(own)}")
+    for name, t in state.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(owner)
+        if name in params:
+            mod._parameters[leaf] = nn.Parameter(t, requires_grad=params[name].requires_grad)
+        else:
+            mod._buffers[leaf] = t
+
+
 def _dense(n_in: int, n_out: int, gain: float, generator) -> nn.Linear:
     layer = nn.Linear(n_in, n_out)
     with torch.no_grad():
@@ -40,9 +65,9 @@ class MlpPolicy(nn.Module):
 
     Call with observations of shape (B, N, N) or (B, N*N), any dtype;
     returns ``(logits (B, N*N) float32, value (B,) float32)``.  Where
-    ``ops/mlp_forward.bind`` has bound the parameters and built their image,
-    a float32 call with grad disabled on the image's device runs as one
-    kernel launch while the parameters stay as they were bound.
+    ``bind`` built an image of the parameters, a float32 call with grad
+    disabled on the image's device runs as one launch of the forward kernel
+    while the parameters stay as they were bound.
     """
 
     def __init__(
@@ -71,9 +96,22 @@ class MlpPolicy(nn.Module):
         self.vf = tower(self.vf_layers)
         self.action_head = _dense(self.pi_layers[-1], n_actions, ORTHO_ACTION_GAIN, generator)
         self.value_head = _dense(self.vf_layers[-1], 1, ORTHO_VALUE_GAIN, generator)
-        # the forward kernel on an image of the parameters, where
-        # ops/mlp_forward.bind built one: taken while its rule holds
+        # the forward kernel on an image of the parameters, where bind
+        # built one: taken while its rule holds
         self.bound_forward = None
+
+    def bind(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Take ``params`` (a state dict) as the module's own with no copy
+        (``assign``), and where the forward kernel takes the module
+        (``ops/mlp_forward.kernel_forward``: equal towers of one width,
+        float32 on a CUDA device), build their image in one launch and
+        forward through it; elsewhere the module forwards on its plain
+        path."""
+        # a function-level import: ops/policy_kernel imports this module
+        from hex_gym_env_tpu_torch.ops import mlp_forward
+
+        assign(self, params)
+        self.bound_forward = mlp_forward.kernel_forward(self)
 
     def forward(self, obs: torch.Tensor):
         bound = self.bound_forward

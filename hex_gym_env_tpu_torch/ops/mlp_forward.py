@@ -1,5 +1,5 @@
-"""The match's policy forward as one CUDA launch, on weights bound once a
-match.
+"""The match's policy forward as one CUDA launch, on an image of a bound
+module's weights.
 
 It replaces no TPU kernel: the JAX package's match calls the model, which
 XLA compiles whole.  The port's eager forward cost ``scripts/match.py``
@@ -8,21 +8,22 @@ swapping twelve tensors in and out, then ten or eleven ATen ops); here it
 is one launch of ``csrc/hex_kernels.cu`` ``mlp_forward_kernel`` (counter
 ``launch.mlp_forward``; its note there gives the bound and the design).
 
-- ``bind(model, params)`` binds a side's parameters to its ``MlpPolicy``
-  with no copy (``assign``, as ``load_state_dict(..., assign=True)``) and
-  builds the
-  side's image in one launch (``mlp_image_kernel``, counter
-  ``launch.mlp_image``): K2's agent-image layout (``policy_kernel``), built
-  straight from the module's ``nn.Linear`` parameters.  It binds only where
-  the kernel takes the model: equal towers of one width, float32 parameters
-  on a CUDA device.
+- ``kernel_forward(model)``, which ``MlpPolicy.bind`` calls once it holds
+  its parameters: where the kernel takes the model (equal towers of one
+  width, at most ``MAX_LAYERS`` deep, float32 parameters on a CUDA device),
+  the model's image built in one launch (``mlp_image_kernel``, counter
+  ``launch.mlp_image``) as a ``BoundForward``; else None.  The image is
+  K2's agent-image layout (``policy_kernel``), built straight from the
+  module's ``nn.Linear`` parameters.
 - The module's ``forward`` then takes the kernel (``BoundForward``) while
   grad is disabled, the input is float32 on the image's device, and every
   parameter is still the tensor, at the same ``_version`` and address, that
   the image was built from; else its plain path.  A write through
   ``.data`` escapes the version counter, as it escapes autograd.
 - ``forward(image, d, x)``: the kernel for a CUDA tensor, the plain PyTorch
-  twin (``forward_twin``, reading the image) for a CPU one.
+  twin (``forward_twin``, reading the image) for a CPU one.  On the CPU,
+  where ``bind`` builds no image, ``bind_twin`` binds a module on the
+  twin's image, so that the checks can hold the module's rule there.
 
 The kernel returns the raw logits and the value: no mask, no draw.
 """
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import operator
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -143,8 +145,7 @@ _version = operator.attrgetter("_version")
 
 class BoundForward:
     """An ``MlpPolicy``'s forward on ``image``, the image of the parameters
-    the module holds now (``bind`` sets it as the module's
-    ``bound_forward``)."""
+    the module holds now (its ``bound_forward``)."""
 
     def __init__(self, model, image: torch.Tensor):
         self.image = image
@@ -173,32 +174,21 @@ class BoundForward:
         return forward(self.image, self.dims, obs.reshape(obs.shape[0], -1))
 
 
-def assign(model, params) -> None:
-    """``model.load_state_dict(params, assign=True)`` for a state dict that
-    names every parameter of ``model`` and nothing else (as
-    ``load_policy_params`` gives it), without the loader's checks and hooks,
-    which cost ~0.2 ms a call: each parameter becomes an ``nn.Parameter``
-    on ``params``' tensor, no copy, keeping its ``requires_grad``."""
-    own = dict(model.named_parameters())
-    if own.keys() != params.keys():
-        raise ValueError(f"params name {sorted(params)}, the model {sorted(own)}")
-    for name, t in params.items():
-        owner, _, leaf = name.rpartition(".")
-        model.get_submodule(owner)._parameters[leaf] = torch.nn.Parameter(
-            t, requires_grad=own[name].requires_grad)
-
-
-def bind(model, params) -> bool:
-    """Bind ``params`` (a state dict) to ``model`` with no copy and give it
-    the kernel's forward, where the kernel takes the model: an MLP with equal
-    towers of one width (``policy_kernel.supported``), at most ``MAX_LAYERS``
-    deep, its parameters float32 on a CUDA device (of any strides: a
-    ``params:`` file may hold transposed views).  Returns whether it did;
-    elsewhere the model is left as it was."""
+def kernel_forward(model) -> Optional[BoundForward]:
+    """The kernel's forward on ``model``'s own parameters, their image built
+    in one launch, where the kernel takes the model: an MLP with equal
+    towers of one width (``policy_kernel.supported``), at most
+    ``MAX_LAYERS`` deep, its parameters float32 on a CUDA device (of any
+    strides: a ``params:`` file may hold transposed views).  Else None."""
     if not supported(model) or len(model.pi_layers) > MAX_LAYERS:
-        return False
-    if not all(v.is_cuda and v.dtype == torch.float32 for v in params.values()):
-        return False
-    assign(model, params)
-    model.bound_forward = BoundForward(model, _image_cuda(model, mlp_dims(model)))
-    return True
+        return None
+    if not all(p.is_cuda and p.dtype == torch.float32 for p in model.parameters()):
+        return None
+    return BoundForward(model, _image_cuda(model, mlp_dims(model)))
+
+
+def bind_twin(model, params) -> None:
+    """``model.bind(params)``, then the twin's image of ``params`` as its
+    bound forward: the CPU's stand-in for the kernel's image."""
+    model.bind(params)
+    model.bound_forward = BoundForward(model, image_twin(params, mlp_dims(model)))

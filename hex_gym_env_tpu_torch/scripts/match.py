@@ -11,13 +11,14 @@ the batch each way) and reports winrates.  Policies: ``--a/--b`` take
 
 Every ply steps all games through ``core.env.make_ops(topo, "auto", device)``:
 the env-step kernel on the card (``num_cells + 1`` launches a match), the
-plain step on the CPU (``--cpu``).  An MLP side on the card is bound once a
-match (``ops/mlp_forward.bind``: its parameters assigned to the module,
-their image built in one launch), and each of its forwards is the module's
-call, one launch of the forward kernel; any other side (a CNN, or any side
-on the CPU) runs ``functional_call`` of its module (on the card a CNN's
-layers are cuDNN's conv and one launch of the epilogue kernel each,
-``ops/cnn_epilogue``, then cuBLAS).  Samples are Gumbel-max draws over
+plain step on the CPU (``--cpu``).  Each side's parameters are bound into
+its module once a match (``bind``, no copy), and each of its forwards is
+one call of the module; the model picks its kernels.  On the card an MLP
+side forwards as one launch of the forward kernel (``MlpPolicy.bind``
+builds the image of its weights in one launch, ``ops/mlp_forward``), and a
+CNN side's layers are cuDNN's conv and one launch of the epilogue kernel
+each (``ops/cnn_epilogue``), then cuBLAS; on the CPU every side runs its
+plain PyTorch forward.  Samples are Gumbel-max draws over
 32-bit words (``ops/masked.sample``), drawn from a ``torch.Generator``
 seeded by ``--seed`` or given as ``bits``; the JAX package draws from its
 own key, so a stochastic match agrees with it in distribution, and with
@@ -29,7 +30,7 @@ injected words game for game.
 ``match.bind``, a ``match.ply`` each ply (``ply.observe``, ``ply.forward``
 and ``ply.pick`` for each side, ``ply.step``) and ``match.result``; and it
 counts ``matches``, ``host_syncs``, the loads' ``h2d_bytes``, and
-``forwards`` (one a side each ply, whichever path runs).  ``ply.forward``
+``forwards`` (one a side each ply, whichever kernels run).  ``ply.forward``
 takes the device clock (its ``device_ms`` in ``span_table``), and a CNN
 side's forward opens ``forward.conv``, ``forward.norm`` (5 each) and
 ``forward.dense`` inside it (``models/cnn.py``).  ``--profile DIR``
@@ -51,7 +52,7 @@ import torch
 from hex_gym_env_tpu_torch.core import env as hex_env
 from hex_gym_env_tpu_torch.core.topology import get_topology
 from hex_gym_env_tpu_torch.models.loading import load_policy_params
-from hex_gym_env_tpu_torch.ops import masked, mlp_forward
+from hex_gym_env_tpu_torch.ops import masked
 from hex_gym_env_tpu_torch.utils import profiling
 from hex_gym_env_tpu_torch.utils.device import resolve_device
 
@@ -67,21 +68,10 @@ def bits_shape(board_size: int, games: int) -> tuple[int, int, int, int]:
     return (cells + 1, 2, games, cells)
 
 
-def _bind(model, params):
-    """``None`` where ``model`` now holds ``params`` and forwards through
-    the kernel (``mlp_forward.bind``: an MLP side on the card), else
-    ``params``, which each forward passes through ``functional_call``."""
-    with profiling.span("match.bind"):
-        return None if mlp_forward.bind(model, params) else params
-
-
-def _forward(model, params, obs):
+def _forward(model, obs):
     with profiling.span("ply.forward", device=obs.device):
         profiling.count("forwards")
-        if params is None:
-            logits, _ = model(obs)
-        else:
-            logits, _ = torch.func.functional_call(model, params, (obs,))
+        logits, _ = model(obs)
     return logits
 
 
@@ -138,8 +128,9 @@ def run_match(board_size: int, games: int, spec_a: str, spec_b: str,
         with profiling.span("match.load"):
             model_b, params_b = load_policy_params(spec_b, board_size,
                                                    family=family_b, device=device)
-        params_a = _bind(model_a, params_a)
-        params_b = _bind(model_b, params_b)
+        for model, params in ((model_a, params_a), (model_b, params_b)):
+            with profiling.span("match.bind"):
+                model.bind(params)
         B = games
         shape = bits_shape(board_size, B)
         if bits is None:
@@ -162,9 +153,9 @@ def run_match(board_size: int, games: int, spec_a: str, spec_b: str,
                 with profiling.span("ply.observe"):
                     obs = ops.observe(state).to(torch.float32)
                     legal = ops.legal_mask(state)
-                a_act = _pick(_forward(model_a, params_a, obs), legal,
+                a_act = _pick(_forward(model_a, obs), legal,
                               None if a_det else bits[t, 0], a_det)
-                b_act = _pick(_forward(model_b, params_b, obs), legal,
+                b_act = _pick(_forward(model_b, obs), legal,
                               None if b_det else bits[t, 1], b_det)
                 with profiling.span("ply.step"):
                     action = torch.where(state.to_move == seat_a, a_act, b_act)

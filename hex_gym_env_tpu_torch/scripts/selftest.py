@@ -382,7 +382,7 @@ def _forward_err(got, want) -> float:
 def check_mlp_forward(device, batch: int = 4096, boards=(5, 7, 9, 11), match_games: int = 512,
                       families=("MLP-default", "MLP-deep", "MLP-wide-deep")) -> float:
     """7: on every family and board, a module bound on ``device`` (its twin's
-    image on the CPU, where ``bind`` binds nothing): the image equals the
+    image on the CPU, where ``bind`` builds none): the image equals the
     twin's, and the module's call equals the twin's forward; a 7x7 match
     takes the kernel for every forward of both sides; after a parameter is
     changed in place, the module gives the plain path's output exactly, and
@@ -399,11 +399,11 @@ def check_mlp_forward(device, batch: int = 4096, boards=(5, 7, 9, 11), match_gam
             params = {k: v.detach().to(device) for k, v in model.state_dict().items()}
             d = pk.mlp_dims(model)
             twin = mlp_forward.image_twin(params, d)
-            _require(mlp_forward.bind(model, params) == cuda,
-                     f"{family} {n}x{n}: bound {not cuda} on {device.type}")
+            model.bind(params)
+            _require((model.bound_forward is not None) == cuda,
+                     f"{family} {n}x{n}: an image built {not cuda} on {device.type}")
             if not cuda:
-                mlp_forward.assign(model, params)
-                model.bound_forward = mlp_forward.BoundForward(model, twin)
+                mlp_forward.bind_twin(model, params)
             _require(torch.equal(model.bound_forward.image, twin),
                      f"{family} {n}x{n}: the image differs from the twin's")
             x = torch.randint(-1, 2, (batch, n, n), generator=g).to(device, torch.float32)
@@ -417,13 +417,14 @@ def check_mlp_forward(device, batch: int = 4096, boards=(5, 7, 9, 11), match_gam
                 with torch.no_grad():
                     model.action_head.bias.add_(0.5)  # in place, after binding
                     stale = model(x)
-                    bound, model.bound_forward = model.bound_forward, None
-                    plain = model(x)
-                    model.bound_forward = bound
+                    unbound = make_policy(family, n * n, generator=torch.Generator()).to(device)
+                    unbound.load_state_dict(model.state_dict())
+                    plain = unbound(x)
                 _require(all(torch.equal(a, b) for a, b in zip(stale, plain)),
                          "a parameter changed after binding was read stale")
                 if cuda:
-                    _require(mlp_forward.bind(model, dict(model.state_dict())), "no rebind")
+                    model.bind(dict(model.state_dict()))
+                    _require(model.bound_forward is not None, "no rebind")
                     with torch.no_grad():
                         again = model(x)
                     twin = mlp_forward.image_twin(model.state_dict(), d)
@@ -431,11 +432,12 @@ def check_mlp_forward(device, batch: int = 4096, boards=(5, 7, 9, 11), match_gam
                         twin, d, x.reshape(batch, -1)))
                     _require(err <= FWD_REL, f"bound again, the forward is off by {err}")
     n = 7
-    cuda_lib.reset_launches()
+    # the match's own launches, leaving the caller's counts as they stand
+    before = dict(cuda_lib.launches)
     run_match(n, match_games, f"params:{agent_path(n)}", "random", mode="deterministic",
               device=device)
     want = 2 * (n * n + 1) if cuda else 0
-    got = (cuda_lib.launches["mlp_forward"], cuda_lib.launches["mlp_image"])
+    got = tuple(cuda_lib.launches[k] - before[k] for k in ("mlp_forward", "mlp_image"))
     _require(got == (want, 2 if cuda else 0),
              f"a {n}x{n} match launched the forward and image kernels {got} times")
     print(f"7. the match's forward kernel against its twin on {', '.join(families)} at "

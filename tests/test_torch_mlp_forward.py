@@ -1,8 +1,9 @@
 """The match's policy forward (``ops/mlp_forward``) on the CPU: its twin
 against ``MlpPolicy``'s plain forward for every MLP family at boards 5 to
-11, the image's layout, the rule by which a module takes the kernel, and
-``run_match``'s forwards as a hook and the counters see them.  The kernel
-itself runs on the card only (``chip_smoke.py``, ``scripts.selftest``)."""
+11, the image's layout, the policies' no-copy ``bind``, the rule by which a
+module takes the kernel, and ``run_match``'s forwards as a hook and the
+counters see them.  The kernel itself runs on the card only
+(``chip_smoke.py``, ``scripts.selftest``)."""
 
 import pytest
 import torch
@@ -10,6 +11,7 @@ import torch
 from benchmark import harness
 from hex_gym_env_tpu_torch.models import make_policy
 from hex_gym_env_tpu_torch.models.loading import agent_path
+from hex_gym_env_tpu_torch.models.mlp import assign
 from hex_gym_env_tpu_torch.ops import mlp_forward, policy_kernel
 from hex_gym_env_tpu_torch.scripts import match
 from hex_gym_env_tpu_torch.utils import profiling
@@ -38,13 +40,6 @@ def _model(family, n, seed=0):
 def _boards(n, B, seed):
     g = torch.Generator().manual_seed(seed)
     return torch.randint(-1, 2, (B, n, n), generator=g).to(torch.float32)
-
-
-def _bind_cpu(model, params):
-    """What ``bind`` does on the card, with the twin's image on the CPU."""
-    mlp_forward.assign(model, params)
-    d = policy_kernel.mlp_dims(model)
-    model.bound_forward = mlp_forward.BoundForward(model, mlp_forward.image_twin(params, d))
 
 
 @pytest.mark.parametrize("n", [5, 7, 9, 11])
@@ -90,7 +85,7 @@ def test_a_current_image_takes_the_twin_and_its_rule():
     x = _boards(7, 32, seed=1)
     with torch.no_grad():
         plain = model(x)
-    _bind_cpu(model, params)
+    mlp_forward.bind_twin(model, params)
     bound = model.bound_forward
     assert bound.current() and all(
         getattr(model.get_submodule(k.rsplit(".", 1)[0]), k.rsplit(".", 1)[1]).data_ptr()
@@ -121,7 +116,7 @@ def test_the_plain_path_whenever_the_rule_fails(case):
     model, params = _model("MLP-deep", 5)
     x = _boards(5, 16, seed=2)
     if case != "unbound":
-        _bind_cpu(model, params)
+        mlp_forward.bind_twin(model, params)
     if case == "in_place":
         with torch.no_grad():
             model.action_head.bias.add_(0.5)  # after binding: the image is stale
@@ -145,49 +140,78 @@ def test_the_plain_path_whenever_the_rule_fails(case):
         assert float((got[0] - image_out[0]).abs().min()) > 0.4
 
 
-def test_assign_is_load_state_dict_with_assign():
-    model, params = _model("MLP-wide-deep", 5)
-    other, _ = _model("MLP-wide-deep", 5, seed=1)
-    twin, _ = _model("MLP-wide-deep", 5, seed=1)
-    mlp_forward.assign(other, params)
+@pytest.mark.parametrize("family", ["MLP-wide-deep", "CNN"])
+def test_assign_is_load_state_dict_with_assign(family):
+    model = make_policy(family, 25, generator=torch.Generator().manual_seed(0))
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    other = make_policy(family, 25, generator=torch.Generator().manual_seed(1))
+    twin = make_policy(family, 25, generator=torch.Generator().manual_seed(1))
+    assign(other, params)
     twin.load_state_dict(params, assign=True)
     for (k, p), (k2, q) in zip(other.named_parameters(), twin.named_parameters()):
         assert k == k2 and type(p) is type(q) and p.requires_grad == q.requires_grad
         assert p.data_ptr() == q.data_ptr() == params[k].data_ptr()
+    buffers = dict(other.named_buffers())
+    assert sorted(buffers) == sorted(k for k, _ in twin.named_buffers())
+    assert len(buffers) == (10 if family == "CNN" else 0)  # BatchNorm's mean and var
+    for k, b in buffers.items():
+        assert b is params[k] and b.data_ptr() == dict(twin.named_buffers())[k].data_ptr()
+    missing = "pi.0.bias" if family != "CNN" else "conv_in.bn.var"
     with pytest.raises(ValueError, match="params name"):
-        mlp_forward.assign(other, {k: v for k, v in params.items() if k != "pi.0.bias"})
+        assign(other, {k: v for k, v in params.items() if k != missing})
 
 
 def test_bind_leaves_what_the_kernel_does_not_take():
+    """``bind`` always takes the state dict with no copy, and builds an image
+    only where the kernel takes the model: not on CPU parameters, a CNN or
+    uneven towers."""
     model, params = _model("MLP-default", 5)
-    before = {k: v.data_ptr() for k, v in model.state_dict().items()}
-    assert not mlp_forward.bind(model, params)  # CPU parameters
-    assert model.bound_forward is None
-    assert {k: v.data_ptr() for k, v in model.state_dict().items()} == before
     cnn = make_policy("CNN", 25)
-    assert not mlp_forward.bind(cnn, cnn.state_dict())
     uneven = type(model)(25, (64, 32), (64, 32))
-    assert not mlp_forward.bind(uneven, uneven.state_dict())
+    for module, state in ((model, params), (cnn, dict(cnn.state_dict())),
+                          (uneven, dict(uneven.state_dict()))):
+        module.bind(state)
+        assert all(v.data_ptr() == state[k].data_ptr() for k, v in module.state_dict().items())
+        assert getattr(module, "bound_forward", None) is None
 
 
-@pytest.mark.parametrize("spec_b", ["random", f"params:{agent_path(5)}"])
-def test_run_match_hands_the_hook_every_forward(spec_b):
+def _cnn_agent(n, path):
+    """A ``params:`` file of a drawn CNN at board n, its BatchNorm drawn too
+    (at its start values BatchNorm is all but the identity)."""
+    g = torch.Generator().manual_seed(n)
+    sd = make_policy("CNN", n * n, generator=g).state_dict()
+    for k in sd:
+        if k.endswith(".bn.mean"):
+            sd[k] = 0.1 * torch.randn(sd[k].shape, generator=g)
+        elif k.endswith(".bn.var"):
+            sd[k] = 1.0 + 0.1 * torch.rand(sd[k].shape, generator=g)
+    torch.save(sd, path)
+    return f"params:{path}"
+
+
+@pytest.mark.parametrize("spec_b", ["random", f"params:{agent_path(5)}",
+                                    pytest.param(None, id="CNN")])
+def test_run_match_hands_the_hook_every_forward(spec_b, tmp_path):
     n, games = 5, 12
-    taps, handles = [], []
+    spec_a, family = f"params:{agent_path(n)}", "MLP-default"
+    if spec_b is None:  # a drawn CNN against a random one
+        spec_a, spec_b, family = _cnn_agent(n, tmp_path / "cnn.pt"), "random", "CNN"
+    taps, handles, models = [], [], []
     inner = match.load_policy_params
 
     def load(*args, **kwargs):
         model, params = inner(*args, **kwargs)
         kept = []
         taps.append(kept)
+        models.append((model, params))
         handles.append(model.register_forward_hook(lambda m, i, out: kept.append(out[0])))
         return model, params
 
     match.load_policy_params = load
     try:
         rec = {}
-        match.run_match(n, games, f"params:{agent_path(n)}", spec_b, mode="deterministic",
-                        device="cpu", record=rec)
+        match.run_match(n, games, spec_a, spec_b, mode="deterministic", device="cpu",
+                        family_a=family, family_b=family, record=rec)
     finally:
         match.load_policy_params = inner
         for h in handles:
@@ -196,9 +220,13 @@ def test_run_match_hands_the_hook_every_forward(spec_b):
     assert len(taps) == 2 and all(len(side) == plies for side in taps)
     assert all(t.shape == (games, n * n) and t.dtype == torch.float32 for side in taps
                for t in side)
+    # each side forwarded on the loaded tensors themselves, bound with no copy
+    assert all(v.data_ptr() == params[k].data_ptr() for model, params in models
+               for k, v in model.state_dict().items())
     counters = profiling.take_counters()
     assert counters["forwards"] == 2 * plies
-    assert counters.get("launch.mlp_forward", 0) == 0  # the CPU keeps functional_call
+    # the CPU builds no image and runs no kernel
+    assert not {k: v for k, v in counters.items() if k.startswith("launch.")}
 
 
 def _reader():

@@ -76,9 +76,23 @@ def test_selftest_fast_sweep_twin_against_the_autograd_replay():
 
 def test_selftest_mlp_forward_check_on_the_twin(capsys):
     # on the CPU the module forwards through the twin's image, and the match
-    # binds nothing
+    # builds no image
     assert selftest.check_mlp_forward(CPU, batch=64, match_games=16) == 0.0
     assert "launched it 0 times" in capsys.readouterr().out
+
+
+def test_selftest_mlp_forward_check_keeps_the_callers_launch_counts():
+    # chip_smoke.py's [tools] phase counts every kernel's launches over the
+    # whole selftest: check 7 reads its match's launches without clearing them
+    from hex_gym_env_tpu_torch.utils import profiling
+
+    profiling.count("launch.k2_agent", 3)
+    try:
+        selftest.check_mlp_forward(CPU, batch=16, boards=(5,), match_games=4,
+                                   families=("MLP-default",))
+        assert profiling.counters.get("launch.k2_agent") == 3
+    finally:
+        profiling.take_counters()
 
 
 def test_selftest_mlp_forward_check_refuses_a_stale_read(monkeypatch):

@@ -244,7 +244,7 @@ def test_run_match_spans_and_counters_on_the_cpu():
     assert [r.name for r in recs if r.parent == ply] == [
         "ply.observe", "ply.forward", "ply.pick", "ply.forward", "ply.pick", "ply.step"]
     counters = profiling.take_counters()
-    # the CPU binds nothing: every forward is functional_call's, none the kernel's
+    # the CPU builds no image: every forward is the module's plain one, none the kernel's
     assert counters == {"matches": 1, "policy_loads": 2, "forwards": 52}
     assert not any(k.startswith("launch.") for k in counters)
 

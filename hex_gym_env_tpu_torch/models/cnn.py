@@ -71,6 +71,7 @@ from hex_gym_env_tpu_torch.models.mlp import (
     ORTHO_ACTION_GAIN,
     ORTHO_HIDDEN_GAIN,
     ORTHO_VALUE_GAIN,
+    Bare,
     _dense,
     assign,
 )
@@ -132,13 +133,23 @@ class BatchNorm(nn.Module):
         return torch.rsqrt(var + BN_EPS) * self.scale
 
 
+class BareConv2d(Bare, nn.Conv2d):
+    """``nn.Conv2d`` built with zero weight and bias (``models/mlp.Bare``)."""
+
+
 class ConvBnRelu(nn.Module):
-    def __init__(self, cin: int, cout: int, generator):
+    """A 3x3 SAME conv, orthogonal with gain sqrt(2) and zero bias (with
+    ``init`` off, a ``BareConv2d``), and its ``BatchNorm``."""
+
+    def __init__(self, cin: int, cout: int, generator, init: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3, padding=1)
-        with torch.no_grad():
-            nn.init.orthogonal_(self.conv.weight, gain=ORTHO_HIDDEN_GAIN, generator=generator)
-            self.conv.bias.zero_()
+        if init:
+            self.conv = nn.Conv2d(cin, cout, 3, padding=1)
+            with torch.no_grad():
+                nn.init.orthogonal_(self.conv.weight, gain=ORTHO_HIDDEN_GAIN, generator=generator)
+                self.conv.bias.zero_()
+        else:
+            self.conv = BareConv2d(cin, cout, 3, padding=1)
         self.bn = BatchNorm(cout)
 
 
@@ -152,7 +163,9 @@ class CnnPolicy(nn.Module):
     running statistics by state-dict key (the counterpart of flax's
     ``mutable=["batch_stats"]``).  ``train`` is an argument, not
     ``module.training``, because ``torch.func.functional_call`` shares one
-    module between the rollout and the learner."""
+    module between the rollout and the learner.  With ``init`` off the
+    convs and dense layers are built bare (zero, no draw; BatchNorm keeps
+    its ones and zeros), the loader's template."""
 
     def __init__(
         self,
@@ -162,6 +175,7 @@ class CnnPolicy(nn.Module):
         pi_layers: Sequence[int] = (128, 128),
         vf_layers: Sequence[int] = (128, 128),
         generator: torch.Generator | None = None,
+        init: bool = True,
     ):
         super().__init__()
         self.n_actions = n_actions
@@ -174,20 +188,25 @@ class CnnPolicy(nn.Module):
         self.vf_layers = tuple(vf_layers)
         cin = 1
         for name in CONV_LAYERS:
-            self.add_module(name, ConvBnRelu(cin, filters, generator))
+            self.add_module(name, ConvBnRelu(cin, filters, generator, init))
             cin = filters
-        self.features = _dense(n_actions * filters, features_dim, ORTHO_HIDDEN_GAIN, generator)
+        self.features = _dense(n_actions * filters, features_dim, ORTHO_HIDDEN_GAIN, generator,
+                               init)
 
         def tower(widths):
             dims = (features_dim,) + tuple(widths)
             return nn.ModuleList(
-                _dense(a, b, ORTHO_HIDDEN_GAIN, generator) for a, b in zip(dims[:-1], dims[1:])
+                _dense(a, b, ORTHO_HIDDEN_GAIN, generator, init)
+                for a, b in zip(dims[:-1], dims[1:])
             )
 
         self.pi = tower(self.pi_layers)
         self.vf = tower(self.vf_layers)
-        self.action_head = _dense(self.pi_layers[-1], n_actions, ORTHO_ACTION_GAIN, generator)
-        self.value_head = _dense(self.vf_layers[-1], 1, ORTHO_VALUE_GAIN, generator)
+        self.action_head = _dense(self.pi_layers[-1], n_actions, ORTHO_ACTION_GAIN, generator,
+                                  init)
+        self.value_head = _dense(self.vf_layers[-1], 1, ORTHO_VALUE_GAIN, generator, init)
+        if init:
+            profiling.count("policy_inits")
 
     def forward(self, obs: torch.Tensor, train: bool = False):
         n = self.board

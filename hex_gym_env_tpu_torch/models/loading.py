@@ -27,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from hex_gym_env_tpu_torch.models import make_policy
+from hex_gym_env_tpu_torch.models import policy_template
 from hex_gym_env_tpu_torch.models.convert import flax_state_dict
 from hex_gym_env_tpu_torch.utils import profiling
 from hex_gym_env_tpu_torch.utils.device import resolve_device
@@ -91,13 +91,16 @@ def load_policy_params(spec: str, board_size: int, model=None, family: str = "ML
     ``torch.func.functional_call`` and the policies' ``bind`` take.
 
     ``family`` picks the architecture (``models.make_policy`` names) when no
-    ``model`` is given — needed for non-MLP snapshots (e.g. CNN)."""
+    ``model`` is given — needed for non-MLP snapshots (e.g. CNN).  Then
+    ``model`` is a fresh ``models.policy_template``: built with no
+    initialisation (zero weights, no generator read), since only its names,
+    shapes and dtypes are read here and its user replaces every tensor."""
     device = resolve_device(device)
     profiling.count("policy_loads")
     n = board_size
     with profiling.span("load.template"):
         if model is None:
-            model = make_policy(family, n * n)
+            model = policy_template(family, n * n)
         template = model.state_dict()
     if spec == "random":
         with profiling.span("load.h2d"):

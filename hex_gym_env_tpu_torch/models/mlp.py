@@ -7,7 +7,11 @@ The counterpart of the JAX package's ``models/mlp.py``:
   (``MLP-default``); the deep/wide variants use ReLU;
 - linear action head (N^2 logits) and linear value head (scalar);
 - orthogonal init with SB3's gains: sqrt(2) for hidden layers, 0.01 for the
-  action head, 1.0 for the value head; zero biases.
+  action head, 1.0 for the value head; zero biases.  ``init=False`` builds
+  the module with no initialisation (``BareLinear`` layers, weights and
+  biases zero), the loader's template (``models.policy_template``), whose
+  tensors are all replaced; a module whose initialisation ran counts
+  ``policy_inits`` (``utils/profiling``).
 
 Parameters follow ``nn.Linear``'s (out, in) layout; ``models/convert.py``
 carries the JAX package's (in, out) flax kernels across.
@@ -24,6 +28,8 @@ from typing import Mapping, Sequence
 
 import torch
 from torch import nn
+
+from hex_gym_env_tpu_torch.utils import profiling
 
 ORTHO_HIDDEN_GAIN = 2.0**0.5
 ORTHO_ACTION_GAIN = 0.01
@@ -52,7 +58,26 @@ def assign(module: nn.Module, state: Mapping[str, torch.Tensor]) -> None:
             mod._buffers[leaf] = t
 
 
-def _dense(n_in: int, n_out: int, gain: float, generator) -> nn.Linear:
+class Bare:
+    """A layer whose constructor fills its weight and bias with zeros in
+    place of ``reset_parameters``' draws: no generator is read, and one
+    pass writes each tensor."""
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.zero_()
+            self.bias.zero_()
+
+
+class BareLinear(Bare, nn.Linear):
+    """``nn.Linear`` built with zero weight and bias (``Bare``)."""
+
+
+def _dense(n_in: int, n_out: int, gain: float, generator, init: bool = True) -> nn.Linear:
+    """A linear layer with orthogonal weights of ``gain`` and zero bias;
+    with ``init`` off, a ``BareLinear``."""
+    if not init:
+        return BareLinear(n_in, n_out)
     layer = nn.Linear(n_in, n_out)
     with torch.no_grad():
         nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
@@ -64,7 +89,8 @@ class MlpPolicy(nn.Module):
     """Separate pi/vf towers + action/value heads.
 
     Call with observations of shape (B, N, N) or (B, N*N), any dtype;
-    returns ``(logits (B, N*N) float32, value (B,) float32)``.  Where
+    returns ``(logits (B, N*N) float32, value (B,) float32)``.  With
+    ``init`` off the layers are built bare (zero, no draw).  Where
     ``bind`` built an image of the parameters, a float32 call with grad
     disabled on the image's device runs as one launch of the forward kernel
     while the parameters stay as they were bound.
@@ -77,6 +103,7 @@ class MlpPolicy(nn.Module):
         vf_layers: Sequence[int] = (64, 64),
         activation: str = "tanh",
         generator: torch.Generator | None = None,
+        init: bool = True,
     ):
         super().__init__()
         if activation not in ACTIVATIONS:
@@ -89,13 +116,17 @@ class MlpPolicy(nn.Module):
         def tower(widths):
             dims = (n_actions,) + tuple(widths)
             return nn.ModuleList(
-                _dense(a, b, ORTHO_HIDDEN_GAIN, generator) for a, b in zip(dims[:-1], dims[1:])
+                _dense(a, b, ORTHO_HIDDEN_GAIN, generator, init)
+                for a, b in zip(dims[:-1], dims[1:])
             )
 
         self.pi = tower(self.pi_layers)
         self.vf = tower(self.vf_layers)
-        self.action_head = _dense(self.pi_layers[-1], n_actions, ORTHO_ACTION_GAIN, generator)
-        self.value_head = _dense(self.vf_layers[-1], 1, ORTHO_VALUE_GAIN, generator)
+        self.action_head = _dense(self.pi_layers[-1], n_actions, ORTHO_ACTION_GAIN, generator,
+                                  init)
+        self.value_head = _dense(self.vf_layers[-1], 1, ORTHO_VALUE_GAIN, generator, init)
+        if init:
+            profiling.count("policy_inits")
         # the forward kernel on an image of the parameters, where bind
         # built one: taken while its rule holds
         self.bound_forward = None

@@ -1,6 +1,8 @@
 """The port's policy loading against the JAX package's: the SB3 import, the
 ``random``, ``orbax:`` and ``params:`` specs, and the committed ``params:``
-copies of the repo's trained agents."""
+copies of the repo's trained agents; the loader's bare template
+(``models.policy_template``) against the initialised ``make_policy``, alone
+and in recorded matches."""
 
 import io
 import os
@@ -18,8 +20,12 @@ from hex_gym_env_tpu.models import make_policy as jax_make_policy
 from hex_gym_env_tpu.models import sb3_import as jax_sb3
 from hex_gym_env_tpu.models.loading import load_policy_params as jax_load
 
-from hex_gym_env_tpu_torch.models import loading, sb3_import
+from hex_gym_env_tpu_torch.models import cnn, loading, make_policy, sb3_import
 from hex_gym_env_tpu_torch.models.convert import flax_state_dict
+from hex_gym_env_tpu_torch.models.mlp import Bare
+from hex_gym_env_tpu_torch.scripts import match
+from hex_gym_env_tpu_torch.utils import profiling
+from hex_gym_env_tpu_torch.utils.checkpoint import save_params
 
 ATOL = 1e-5  # tests/test_torch_policy.py's: float32 sums in another order than XLA's
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -182,3 +188,235 @@ def test_bad_specs_raise():
     # the 7x7 agent does not fit a 5x5 board
     with pytest.raises(ValueError, match="does not fit"):
         loading.load_policy_params(f"params:{loading.agent_path(7)}", 5, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the loader's bare template
+# ---------------------------------------------------------------------------
+
+FAMILY_WIDTHS = {"MLP-default": (64, 64), "MLP-deep": (64,) * 4, "MLP-wide-deep": (128,) * 4,
+                 "CNN": (128, 128)}
+
+
+def _agent(family, n, seed):
+    """An initialised module's state dict with every tensor moved off its
+    init (BatchNorm's variances kept positive): a ``params:`` agent."""
+    g = torch.Generator().manual_seed(seed)
+    sd = make_policy(family, n * n, generator=g).state_dict()
+    out = {}
+    for k, v in sd.items():
+        w = v + 0.3 * torch.randn(v.shape, generator=g)
+        out[k] = w.abs() + 0.5 if k.endswith("bn.var") else w
+    return out
+
+
+def _params_file(tmp_path, family, n, seed=0):
+    sd = _agent(family, n, seed)
+    path = str(tmp_path / f"{family}_{n}_{seed}.pt")
+    save_params(path, sd)
+    return f"params:{path}", sd
+
+
+def _sb3_state(path):
+    """The SB3 zip's ``policy.pth`` under the port's names, read straight
+    from the zip."""
+    with zipfile.ZipFile(path) as z:
+        raw = torch.load(io.BytesIO(z.read("policy.pth")), weights_only=True)
+    names = {"action_net": "action_head", "value_net": "value_head"}
+    out = {}
+    for k, v in raw.items():
+        prefix, _, leaf = k.rpartition(".")
+        if prefix.startswith("mlp_extractor."):
+            _, tower, idx = prefix.split(".")
+            prefix = f"{'pi' if tower == 'policy_net' else 'vf'}.{int(idx) // 2}"
+        out[f"{names.get(prefix, prefix)}.{leaf}"] = v
+    return out
+
+
+LOADS = [(f, n, kind) for f in ("MLP-default", "CNN") for n in (7, 9)
+         for kind in ("params", "random")] + [("MLP-default", n, "sb3") for n in (7, 9)]
+
+
+@pytest.mark.parametrize("family, n, kind", LOADS)
+def test_load_gives_the_files_tensors_bit_for_bit(tmp_path, family, n, kind):
+    """Whatever the template's values, the loaded state dict is the file's
+    tensors (``random``: zeros of the initialised module's shapes), in keys,
+    shapes, dtypes and bits."""
+    shapes = make_policy(family, n * n).state_dict()
+    if kind == "params":
+        spec, want = _params_file(tmp_path, family, n, seed=n)
+    elif kind == "sb3":
+        spec = f"sb3:{_sb3_zip(tmp_path, n, seed=n)}"
+        want = _sb3_state(spec[4:])
+    else:
+        spec, want = "random", {k: torch.zeros_like(v) for k, v in shapes.items()}
+    model, params = loading.load_policy_params(spec, n, family=family, device="cpu")
+    assert sorted(params) == sorted(want) == sorted(shapes)
+    for k, v in params.items():
+        assert v.dtype == want[k].dtype == shapes[k].dtype == torch.float32, k
+        assert v.shape == want[k].shape == shapes[k].shape and v.device.type == "cpu", k
+        assert torch.equal(v, want[k]), k
+    assert sorted(model.state_dict()) == sorted(shapes)
+
+
+@pytest.mark.parametrize("family", ["MLP-default", "CNN"])
+def test_a_load_counts_no_init_and_reads_no_generator(tmp_path, family):
+    """A load builds its template with no initialisation: no
+    ``policy_inits``, and torch's default generator as it was; the
+    initialised ``make_policy`` counts one and draws from it."""
+    spec, _ = _params_file(tmp_path, family, 7)
+    profiling.take_counters()
+    state = torch.random.get_rng_state()
+    for s in (spec, "random"):
+        loading.load_policy_params(s, 7, family=family, device="cpu")
+    assert torch.equal(torch.random.get_rng_state(), state)
+    assert profiling.take_counters() == {"policy_loads": 2}
+    make_policy(family, 49, generator=torch.Generator().manual_seed(0))
+    assert not torch.equal(torch.random.get_rng_state(), state)
+    assert profiling.take_counters() == {"policy_inits": 1}
+
+
+@pytest.mark.parametrize("family", ["MLP-default", "CNN"])
+def test_two_loads_give_distinct_modules(tmp_path, family):
+    spec, _ = _params_file(tmp_path, family, 7)
+    (m1, p1), (m2, p2) = (loading.load_policy_params(spec, 7, family=family, device="cpu")
+                          for _ in range(2))
+    assert m1 is not m2
+    assert not any(a is b for a, b in zip(m1.parameters(), m2.parameters()))
+    fired = []
+    m1.register_forward_hook(lambda *_: fired.append(1))
+    m2.bind(p2)
+    with torch.no_grad():
+        m2(torch.zeros(2, 7, 7))
+    assert fired == []
+    m1.bind(p1)
+    with torch.no_grad():
+        m1(torch.zeros(2, 7, 7))
+    assert fired == [1]
+
+
+@pytest.mark.parametrize("family", ["MLP-default", "MLP-deep", "CNN"])
+def test_an_unbound_template_plays_as_random(tmp_path, family):
+    """The template holds defined values, never uninitialised memory:
+    before ``bind`` its forward gives finite logits, the ``random``
+    spec's zeros."""
+    spec, _ = _params_file(tmp_path, family, 5)
+    model, _ = loading.load_policy_params(spec, 5, family=family, device="cpu")
+    obs = torch.from_numpy(_positions(5, 8, seed=2))
+    with torch.no_grad():
+        logits, value = model(obs)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(value).all())
+    assert bool((logits == 0).all())
+
+
+def test_a_spec_of_the_wrong_shape_raises(tmp_path):
+    spec, _ = _params_file(tmp_path, "CNN", 9)
+    with pytest.raises(ValueError, match="does not fit"):
+        loading.load_policy_params(spec, 7, family="CNN", device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        loading.load_policy_params(spec, 9, family="MLP-default", device="cpu")
+    mlp_spec, _ = _params_file(tmp_path, "MLP-default", 9)
+    with pytest.raises(ValueError, match="does not fit"):
+        loading.load_policy_params(mlp_spec, 9, family="CNN", device="cpu")
+
+
+def _initialised_layer_by_layer(family, n_actions, generator) -> dict:
+    """The state dict of the initialised path written out layer by layer:
+    each layer a plain ``nn.Linear`` or ``nn.Conv2d`` (their own draws from
+    torch's default generator), in the modules' order, its weight
+    orthogonal from ``generator``, its bias zero; BatchNorm's ones and
+    zeros."""
+    sd = {}
+
+    def layer(name, module, gain):
+        torch.nn.init.orthogonal_(module.weight, gain=gain, generator=generator)
+        sd[f"{name}.weight"] = module.weight.detach()
+        sd[f"{name}.bias"] = torch.zeros_like(module.bias)
+
+    hidden = 2.0**0.5
+    widths = FAMILY_WIDTHS[family]
+    features = n_actions
+    if family == "CNN":
+        cin = 1
+        for name in cnn.CONV_LAYERS:
+            layer(f"{name}.conv", torch.nn.Conv2d(cin, 64, 3, padding=1), hidden)
+            sd.update({f"{name}.bn.scale": torch.ones(64), f"{name}.bn.bias": torch.zeros(64),
+                       f"{name}.bn.mean": torch.zeros(64), f"{name}.bn.var": torch.ones(64)})
+            cin = 64
+        layer("features", torch.nn.Linear(n_actions * 64, 128), hidden)
+        features = 128
+    for tower in ("pi", "vf"):
+        dims = (features,) + widths
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            layer(f"{tower}.{i}", torch.nn.Linear(a, b), hidden)
+    layer("action_head", torch.nn.Linear(widths[-1], n_actions), 0.01)
+    layer("value_head", torch.nn.Linear(widths[-1], 1), 1.0)
+    return sd
+
+
+@pytest.mark.parametrize("family", list(FAMILY_WIDTHS))
+def test_make_policy_initialises_layer_by_layer(family):
+    """``make_policy(family, n, generator)`` still gives the state dict the
+    seeded tests expect, bit for bit, and leaves both generators where the
+    layer-by-layer construction leaves them."""
+    A = 49
+    torch.manual_seed(1234)
+    got = make_policy(family, A, generator=torch.Generator().manual_seed(0))
+    got_state = torch.random.get_rng_state()
+    torch.manual_seed(1234)
+    g = torch.Generator().manual_seed(0)
+    want = _initialised_layer_by_layer(family, A, g)
+    assert torch.equal(torch.random.get_rng_state(), got_state)
+    sd = got.state_dict()
+    assert sorted(sd) == sorted(want)
+    assert all(sd[k].dtype == want[k].dtype and torch.equal(sd[k], want[k]) for k in want)
+    again = make_policy(family, A, generator=torch.Generator().manual_seed(0)).state_dict()
+    assert all(torch.equal(sd[k], again[k]) for k in sd)
+    assert not any(isinstance(m, Bare) for m in got.modules())
+
+
+def _recorded_match(monkeypatch, n, games, specs, family, mode, initialised):
+    """One recorded match of ``specs`` through ``run_match``: its result,
+    actions, winners and every forward's logits by side.  ``initialised``
+    hands the loader each side's module built by ``make_policy`` (its
+    weights initialised) in place of the bare template."""
+    inner, taps = match.load_policy_params, []
+
+    def load(spec, board_size, model=None, **kwargs):
+        if initialised:
+            model = make_policy(kwargs["family"], board_size * board_size,
+                                generator=torch.Generator().manual_seed(len(taps)))
+        model, params = inner(spec, board_size, model, **kwargs)
+        kept = []
+        taps.append(kept)
+        model.register_forward_hook(lambda module, inputs, out: kept.append(out[0].clone()))
+        return model, params
+
+    monkeypatch.setattr(match, "load_policy_params", load)
+    rec = {}
+    out = match.run_match(n, games, *specs, seed=5, mode=mode, family_a=family,
+                          family_b=family, device="cpu", record=rec)
+    monkeypatch.setattr(match, "load_policy_params", inner)
+    return out, rec, taps
+
+
+@pytest.mark.parametrize("family, n", [("CNN", 9), ("MLP-default", 7)])
+@pytest.mark.parametrize("mode", ["a-det", "stochastic"])
+def test_a_match_on_bare_templates_plays_as_on_initialised_modules(tmp_path, monkeypatch,
+                                                                   family, n, mode):
+    """Two ``params:`` agents, each side's module the loader's bare
+    template or an initialised ``make_policy`` module bound alike: the same
+    result, actions, winners and tapped logits, bit for bit."""
+    specs = [_params_file(tmp_path, family, n, seed)[0] for seed in (1, 2)]
+    games = 8
+    bare = _recorded_match(monkeypatch, n, games, specs, family, mode, initialised=False)
+    init = _recorded_match(monkeypatch, n, games, specs, family, mode, initialised=True)
+    assert bare[0] == init[0]
+    assert torch.equal(bare[1]["actions"], init[1]["actions"])
+    assert torch.equal(bare[1]["winners"], init[1]["winners"])
+    assert len(bare[2]) == len(init[2]) == 2
+    for side_bare, side_init in zip(bare[2], init[2]):
+        assert len(side_bare) == len(side_init) == n * n + 1
+        assert all(torch.equal(a, b) for a, b in zip(side_bare, side_init))
+    # the agents' logits differ: the match plays its weights, not the template's
+    assert not torch.equal(bare[2][0][0], bare[2][1][0])

@@ -164,6 +164,9 @@ the kernel.
 only builds the kernels and runs the ``[cnn epilogue]`` phase: the CNN
 forward's epilogue kernel bit for bit against its twin at the CNN match's
 shape, its times beside its bound and the ATen chain it displaces, and the
+forward with and without it; then the ``[resnet epilogue]`` phase, the same
+for the kernel's residual launch (the skip operand) at the AZ-ResNet
+match's shape, beside the plain in-place launch there, and the AZ-ResNet
 forward with and without it.
 """
 
@@ -1517,10 +1520,76 @@ def mlp_forward_phase(dev) -> dict:
             "split": {"before": before, "after": after}}
 
 
-# ---- the CNN forward's epilogue ----------------------------------------------------------
+# ---- the conv forwards' epilogue -----------------------------------------------------------
 
 EPI_N, EPI_B = 9, 4096  # the CNN match's boards
+RES_N, RES_B, RES_C = 11, 400, 256  # the AZ-ResNet match's boards and filters
 EPI_REPS = 200
+
+
+def epilogue_times(tag: str, label: str, shape: tuple, kernel, twin, library,
+                   nbytes: int) -> dict:
+    """One epilogue launch form's call and device times beside its bound by
+    bytes, its twin's and those of the ATen chain it displaces (``library``);
+    prints one line under ``tag``.  ``shape`` is (board, boards,
+    channels)."""
+    n, B, C = shape
+    bound, by = bound_ms(nbytes, 0)
+    call = cuda_ms(kernel, EPI_REPS)
+    dev_ms = device_ms(kernel, ["cnn_epilogue_kernel"], 50)
+    lib_call = cuda_ms(library, EPI_REPS)
+    _, lib_busy, lib_top, _ = device_profile(lambda: [library() for _ in range(20)])
+    out = {"call": call, "device": dev_ms, "twin": cuda_ms(twin, EPI_REPS), "library": lib_call,
+           "library_device": lib_busy / 20 / 1e3, "bound": bound}
+    lib_ops = "; ".join(f"{k[:48]} {v / 20:.2f} us" for k, v in lib_top)
+    print(f"[{tag}] {label}, {n}x{n}, {B} boards, {C} channels: call {call:.5f} ms, "
+          f"device {dev_ms:.5f} ms, bound {bound:.5f} ms ({by}: {nbytes / 1e6:.1f} MB), "
+          f"{100 * bound / dev_ms:.1f}% of it, {nbytes / dev_ms / 1e9:.3f} TB/s; twin "
+          f"{out['twin']:.5f} ms; the ATen chain it displaces {lib_call:.5f} ms "
+          f"a call, device {lib_busy / 20 / 1e3:.5f} ms ({lib_ops})")
+    return out
+
+
+def forward_paths(tag: str, cls, fwd, launches: dict, reps: int, profiled: int,
+                  flops: float = 0.0) -> dict:
+    """A policy's inference forward ``fwd`` with the epilogue kernel and on
+    the eager chain (``cls._fuses`` refused): each kernel of ``launches``
+    launched as often as it says in one forward on the kernel, the outputs
+    bit for bit, the time of each path by CUDA events (``reps`` forwards)
+    and its device ops (``profiled`` forwards), printed under ``tag``; with
+    ``flops``, a forward's operations, also its share of the float32 peak.
+    Returns the times, ms a forward."""
+    import torch
+
+    from hex_gym_env_tpu_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    logits, value = fwd()
+    torch.cuda.synchronize()
+    if any(cuda_lib.launches[k] != v for k, v in launches.items()):
+        fail(f"[{tag}] a forward launched {dict(cuda_lib.launches)}")
+    fwd_ms = cuda_ms(fwd, reps)
+    _, fwd_busy, fwd_top, _ = device_profile(lambda: [fwd() for _ in range(profiled)])
+    fuses = cls._fuses
+    cls._fuses = lambda self, x, train: False
+    try:
+        e_logits, e_value = fwd()
+        eager_fwd_ms = cuda_ms(fwd, reps)
+        _, eager_busy, eager_top, _ = device_profile(lambda: [fwd() for _ in range(profiled)])
+    finally:
+        cls._fuses = fuses
+    if not (torch.equal(logits, e_logits) and torch.equal(value, e_value)):
+        fail(f"[{tag}] the forward with the kernel is not the eager forward bit for bit")
+    for label, ms, busy, top in (("kernel", fwd_ms, fwd_busy, fwd_top),
+                                 ("eager chain", eager_fwd_ms, eager_busy, eager_top)):
+        ops = "; ".join(f"{k[:48]} {v / profiled:.1f} us" for k, v in top)
+        share = (f"; {100 * flops / (ms * 1e-3) / 67e12:.1f}% of 67 TFLOP/s by the forward's "
+                 f"operations" if flops else "")
+        print(f"[{tag}] forward, {label}: {ms:.4f} ms a forward (CUDA events{share}), device "
+              f"busy {busy / profiled / 1e3:.4f} ms ({ops})")
+    return {"forward_ms": {"kernel": fwd_ms, "eager": eager_fwd_ms},
+            "forward_busy_ms": {"kernel": fwd_busy / profiled / 1e3,
+                                "eager": eager_busy / profiled / 1e3}}
 
 
 def epilogue_phase(dev) -> dict:
@@ -1538,7 +1607,7 @@ def epilogue_phase(dev) -> dict:
     import torch.nn.functional as F
 
     from hex_gym_env_tpu_torch.models import cnn, make_policy
-    from hex_gym_env_tpu_torch.ops import cnn_epilogue, cuda_lib
+    from hex_gym_env_tpu_torch.ops import cnn_epilogue
 
     n, B, C = EPI_N, EPI_B, 64
     g = torch.Generator().manual_seed(2020)
@@ -1579,59 +1648,100 @@ def epilogue_phase(dev) -> dict:
             return out.permute(0, 2, 3, 1).reshape(B, -1)
 
         nbytes = 2 * 4 * B * C * n * n + 4 * 4 * C
-        bound, by = bound_ms(nbytes, 0)
-        times = {}
-        for label, kernel, twin, library in (
+        times = {
+            label: epilogue_times("cnn epilogue", label, (n, B, C), kernel, twin, library, nbytes)
+            for label, kernel, twin, library in (
                 ("nchw", lambda: cnn_epilogue.epilogue(work, *args),
                  lambda: cnn_epilogue.epilogue_twin(work, *args), eager_chain),
                 ("hwc", lambda: cnn_epilogue.epilogue(work, *args, hwc=True),
-                 lambda: cnn_epilogue.epilogue_twin(work, *args, hwc=True), eager_chain_hwc)):
-            call = cuda_ms(kernel, EPI_REPS)
-            dev_ms = device_ms(kernel, ["cnn_epilogue_kernel"], 50)
-            lib_call = cuda_ms(library, EPI_REPS)
-            _, lib_busy, lib_top, _ = device_profile(lambda: [library() for _ in range(20)])
-            times[label] = {"call": call, "device": dev_ms, "twin": cuda_ms(twin, EPI_REPS),
-                            "library": lib_call, "library_device": lib_busy / 20 / 1e3}
-            lib_ops = "; ".join(f"{k[:48]} {v / 20:.2f} us" for k, v in lib_top)
-            print(f"[cnn epilogue] {label}, {n}x{n}, {B} boards, {C} channels: call {call:.5f} ms, "
-                  f"device {dev_ms:.5f} ms, bound {bound:.5f} ms ({by}: {nbytes / 1e6:.1f} MB), "
-                  f"{100 * bound / dev_ms:.1f}% of it, {nbytes / dev_ms / 1e9:.3f} TB/s; twin "
-                  f"{times[label]['twin']:.5f} ms; the ATen chain it displaces {lib_call:.5f} ms "
-                  f"a call, device {lib_busy / 20 / 1e3:.5f} ms ({lib_ops})")
-
-        fused_fwd = lambda: model(boards)  # noqa: E731
-        fuses = cnn.CnnPolicy._fuses
-        cuda_lib.reset_launches()
-        logits, value = fused_fwd()
-        torch.cuda.synchronize()
-        per_forward = cuda_lib.launches["cnn_epilogue"]
-        if per_forward != len(cnn.CONV_LAYERS):
-            fail(f"[cnn epilogue] a forward launched {dict(cuda_lib.launches)}")
-        fwd_ms = cuda_ms(fused_fwd, 50)
-        _, fwd_busy, fwd_top, _ = device_profile(lambda: [fused_fwd() for _ in range(10)])
-        cnn.CnnPolicy._fuses = lambda self, x, train: False
-        try:
-            e_logits, e_value = fused_fwd()
-            eager_fwd_ms = cuda_ms(fused_fwd, 50)
-            _, eager_busy, eager_top, _ = device_profile(lambda: [fused_fwd() for _ in range(10)])
-        finally:
-            cnn.CnnPolicy._fuses = fuses
-        if not (torch.equal(logits, e_logits) and torch.equal(value, e_value)):
-            fail("[cnn epilogue] the forward with the kernel is not the eager forward bit for bit")
-    for label, ms, busy, top in (("kernel", fwd_ms, fwd_busy, fwd_top),
-                                 ("eager chain", eager_fwd_ms, eager_busy, eager_top)):
-        ops = "; ".join(f"{k[:48]} {v / 10:.1f} us" for k, v in top)
-        print(f"[cnn epilogue] forward, {label}: {ms:.4f} ms a forward (CUDA events), device "
-              f"busy {busy / 10 / 1e3:.4f} ms ({ops})")
+                 lambda: cnn_epilogue.epilogue_twin(work, *args, hwc=True), eager_chain_hwc))}
+        per_forward = len(cnn.CONV_LAYERS)
+        forwards = forward_paths("cnn epilogue", cnn.CnnPolicy, lambda: model(boards),
+                                 {"cnn_epilogue": per_forward}, 50, 10)
     t = times["nchw"]
     return {"name": "cnn_epilogue", "route": "cuda",
             "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu", "replaces": None,
             "launches": per_forward, "launches_per": "forward", "max_abs_err": 0.0,
-            "ms": t["call"], "device_ms": t["device"], "plain_ms": t["twin"], "bound_ms": bound,
-            "bound_by": by, "library_ms": t["library"], "library_device_ms": t["library_device"],
-            "hwc": times["hwc"],
-            "forward_ms": {"kernel": fwd_ms, "eager": eager_fwd_ms},
-            "forward_busy_ms": {"kernel": fwd_busy / 10 / 1e3, "eager": eager_busy / 10 / 1e3}}
+            "ms": t["call"], "device_ms": t["device"], "plain_ms": t["twin"],
+            "bound_ms": t["bound"], "bound_by": "bytes", "library_ms": t["library"],
+            "library_device_ms": t["library_device"], "hwc": times["hwc"], **forwards}
+
+
+def residual_phase(dev) -> dict:
+    """``[resnet epilogue]``: the epilogue kernel's residual launch
+    (``ops/cnn_epilogue.residual``) at the AZ-ResNet match's shape (11x11,
+    400 boards, 256 channels, BatchNorm drawn): bit for bit its twin (the
+    eager chain's ATen ops: BatchNorm's three, the skip's add, the ReLU);
+    its call and device times beside the bound by bytes (y and the skip
+    read, the output written), the twin, the ATen chain it displaces and
+    the plain in-place launch (no bias, no skip) at the same shape; and the
+    AZ-ResNet forward (``ResNetPolicy``, grad off) with the kernel and on
+    the eager chain, bit for bit, its time by CUDA events and its device
+    ops.  Returns the kernel table's row, its launches those counted in one
+    forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from hex_gym_env_tpu_torch.models import cnn, make_policy, resnet
+    from hex_gym_env_tpu_torch.ops import cnn_epilogue
+
+    n, B, C = RES_N, RES_B, RES_C
+    g = torch.Generator().manual_seed(2023)
+    model = make_policy("AZ-ResNet", n * n, generator=g)
+    with torch.no_grad():  # BatchNorm drawn as the benchmark's match cells draw their agents'
+        for layer in [model.conv_in] + [h for b in model.blocks for h in (b.a, b.b)]:
+            noise = torch.randn((4, C), generator=g) * 0.1
+            layer.bn.scale.copy_(1.0 + noise[0])
+            layer.bn.bias.copy_(noise[1])
+            layer.bn.mean.copy_(noise[2])
+            layer.bn.var.copy_(torch.exp(noise[3]))
+    model = model.to(dev)
+    boards = torch.randint(-1, 2, (B, n, n), generator=g).to(dev, torch.float32)
+    layer = model.blocks[0].b
+    bn = layer.bn
+    with torch.no_grad(), cnn.full_float32():
+        skip = torch.relu(torch.randn((B, C, n, n), generator=g).to(dev))
+        y = F.conv2d(skip, layer.conv.weight, None, padding=1)
+        args = (bn.mean, bn.mul(bn.var), bn.bias)
+        want = cnn_epilogue.epilogue_twin(y, None, *args, skip=skip)
+        eager, _, _ = bn(y, False)
+        bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+        got = cnn_epilogue.residual(y.clone(), *args, skip)
+        plain = cnn_epilogue.epilogue(y.clone(), None, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(got), bits(want))
+                and torch.equal(bits(want), bits(torch.relu(eager + skip)))
+                and torch.equal(bits(plain), bits(torch.relu(eager)))):
+            fail("[resnet epilogue] the kernel is not its twin bit for bit at the match's shape")
+        work = y.clone()
+
+        def eager_chain():  # what the eager forward runs after a block's second conv
+            out, _, _ = bn(work, False)
+            return torch.relu(out + skip)
+
+        board = 4 * B * C * n * n
+        times = {
+            label: epilogue_times("resnet epilogue", label, (n, B, C), kernel, twin, library,
+                                  nbytes)
+            for label, kernel, twin, library, nbytes in (
+                ("residual", lambda: cnn_epilogue.residual(work, *args, skip),
+                 lambda: cnn_epilogue.epilogue_twin(work, None, *args, skip=skip), eager_chain,
+                 3 * board + 3 * 4 * C),
+                ("in place", lambda: cnn_epilogue.epilogue(work, None, *args),
+                 lambda: cnn_epilogue.epilogue_twin(work, None, *args),
+                 lambda: torch.relu(bn(work, False)[0]), 2 * board + 3 * 4 * C))}
+        blocks = len(model.blocks)
+        flops = B * (2.0 * 9 * C * n * n + 2 * blocks * 2.0 * 9 * C * C * n * n)
+        forwards = forward_paths("resnet epilogue", resnet.ResNetPolicy, lambda: model(boards),
+                                 {"cnn_epilogue": 1 + blocks, "cnn_epilogue_residual": blocks},
+                                 10, 5, flops)
+    t = times["residual"]
+    return {"name": "cnn_epilogue_residual", "route": "cuda",
+            "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu", "replaces": None,
+            "launches": blocks, "launches_per": "forward", "max_abs_err": 0.0,
+            "ms": t["call"], "device_ms": t["device"], "plain_ms": t["twin"],
+            "bound_ms": t["bound"], "bound_by": "bytes", "library_ms": t["library"],
+            "library_device_ms": t["library_device"], "in_place": times["in place"], **forwards}
 
 
 def compat_phase(dev) -> dict:
@@ -3029,7 +3139,8 @@ def main(dev) -> None:
     compat_counts = compat_phase(dev)
     mlp_row = mlp_forward_phase(dev)
     epilogue_row = epilogue_phase(dev)
-    print(f"[match + compat + mlp forward + cnn epilogue] phases "
+    residual_row = residual_phase(dev)
+    print(f"[match + compat + mlp forward + cnn and resnet epilogues] phases "
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 13. the training entry points, data-parallel training, the scripts -------------
@@ -3079,6 +3190,7 @@ def main(dev) -> None:
         })
     rows.append(mlp_row)
     rows.append(epilogue_row)
+    rows.append(residual_row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3133,7 +3245,9 @@ MODES = {
                                      ("compat", compat_phase, None))),
     "--tools-only": Mode((), False, (("tools", tools_phase, None),)),
     "--mlp-only": Mode((), True, (("mlp forward", mlp_forward_phase, "mlp_forward"),)),
-    "--epilogue-only": Mode((), True, (("cnn epilogue", epilogue_phase, "cnn_epilogue"),)),
+    "--epilogue-only": Mode((), True, (("cnn epilogue", epilogue_phase, "cnn_epilogue"),
+                                       ("resnet epilogue", residual_phase,
+                                        "cnn_epilogue_residual"))),
     "--split-only": Mode(("LABEL",), True,
                          (("split {}", lambda dev, label: phase_splits(label), None),)),
     "--env-kernels": Mode(("LABEL", "ROOT"), False,

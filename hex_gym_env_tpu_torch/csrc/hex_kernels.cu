@@ -1363,7 +1363,15 @@ cudaError_t fwd_plan(const Mlp& m, int B, int* plan) {
 //   relu(((y + conv_bias[c]) - mean[c]) * mul[c] + bn_bias[c])
 // where relu is torch.relu's (clamp_min: a NaN kept, else fmaxf(v, 0)) and
 // mul is torch's rsqrt(var + eps) * scale, computed by the caller; so the
-// output is bit for bit the eager chain's.
+// output is bit for bit the eager chain's.  The residual tower's layers
+// (models/resnet.py) have no conv bias, and a block's second layer adds the
+// block's input, a skip of y's shape, after BatchNorm and before the ReLU:
+//   relu((((y - mean[c]) * mul[c]) + bn_bias[c]) + skip)
+// Four template instances (kHwc, kBias, kSkip) are launched: the CNN's NCHW
+// and HWC layers with the bias, the tower's plain layers without it, and its
+// skip layers without it; so the CNN's instances compute exactly what they
+// did.  Bound with a skip: y and the skip read once and the
+// output written once, 148.7 MB at B = 400, 11x11, C = 256, 44.4 us.
 // Bound: bytes, the activation read once and written once: 169.9 MB at
 // B = 4,096, 9x9, C = 64, 50.7 us at 3.35 TB/s.  Design:
 //   - the four (C,) vectors go into shared memory once a CTA, one float4 a
@@ -1372,12 +1380,12 @@ cudaError_t fwd_plan(const Mlp& m, int B, int* plan) {
 //     give: y and out 16-byte aligned, a board a multiple of 4 floats, and C
 //     a divisor of the CTA's 256 threads (the family's C is 64); the C entry
 //     refuses anything else;
-//   - NCHW (every layer but the last), in place: a thread keeps one
+//   - NCHW (every layer but the CNN's last), in place: a thread keeps one
 //     16-byte position q of a board (4 floats), with its elements' channels
 //     and parameters worked out once, and walks the boards b, b + nb, ...,
-//     four loads in flight before their stores; neighbouring threads take
-//     neighbouring positions, so a warp reads and writes 512 contiguous
-//     bytes;
+//     four loads in flight (and four of the skip's) before their stores;
+//     neighbouring threads take neighbouring positions, so a warp reads and
+//     writes 512 contiguous bytes;
 //   - HWC (the last layer) into a new (B, HW, C) buffer: a CTA stages a
 //     tile of P positions x C channels of one board in shared memory by
 //     4-byte cp.async, a channel row a warp (coalesced), and writes it out
@@ -1394,34 +1402,40 @@ constexpr int kEpiTileFloats = 6144;  // a HWC tile's floats, at most (24 KB; tw
 
 struct EpiArgs {
   const float* y;  // (B, C, HW), the conv's output without its bias
-  const float* conv_bias;
+  const float* conv_bias;  // null where the layer has none
   const float* mean;
   const float* mul;
   const float* bn_bias;
+  const float* skip;  // (B, C, HW), added before the ReLU; null where there is none
   float* out;  // NCHW: y itself; HWC: (B, HW, C)
   int B, C, HW;
   int nb;  // NCHW: board lanes (a thread walks boards b, b + nb, ...); HWC: P
 };
 
-// one element through the eager chain's four ops and ReLU, each rounded
-__device__ __forceinline__ float epi(float v, float4 p) {
-  v = __fadd_rn(v, p.x);
+// one element through the eager chain's ops and ReLU, each rounded
+template <bool kBias, bool kSkip>
+__device__ __forceinline__ float epi(float v, float4 p, float s) {
+  if constexpr (kBias) v = __fadd_rn(v, p.x);
   v = __fsub_rn(v, p.y);
   v = __fmul_rn(v, p.z);
   v = __fadd_rn(v, p.w);
+  if constexpr (kSkip) v = __fadd_rn(v, s);
   return v != v ? v : fmaxf(v, 0.0f);  // a NaN kept, as ATen's clamp_min
 }
 
-// four elements with their channels' parameters p[0 .. 3]
-__device__ __forceinline__ float4 epi(float4 v, const float4* p) {
-  return make_float4(epi(v.x, p[0]), epi(v.y, p[1]), epi(v.z, p[2]), epi(v.w, p[3]));
+// four elements with their channels' parameters p[0 .. 3] and skips s
+template <bool kBias, bool kSkip>
+__device__ __forceinline__ float4 epi(float4 v, const float4* p, float4 s) {
+  return make_float4(epi<kBias, kSkip>(v.x, p[0], s.x), epi<kBias, kSkip>(v.y, p[1], s.y),
+                     epi<kBias, kSkip>(v.z, p[2], s.z), epi<kBias, kSkip>(v.w, p[3], s.w));
 }
 
-template <bool kHwc>
+template <bool kHwc, bool kBias, bool kSkip>
 __global__ void __launch_bounds__(kEpiThreads) cnn_epilogue_kernel(EpiArgs a) {
+  static_assert(!(kHwc && kSkip), "the (H, W, C) launch takes no skip");
   extern __shared__ __align__(16) float4 smem_epi[];  // (C,) parameters, then the HWC tile
   for (int c = threadIdx.x; c < a.C; c += blockDim.x)
-    smem_epi[c] = make_float4(a.conv_bias[c], a.mean[c], a.mul[c], a.bn_bias[c]);
+    smem_epi[c] = make_float4(kBias ? a.conv_bias[c] : 0.0f, a.mean[c], a.mul[c], a.bn_bias[c]);
   __syncthreads();
   const long long board = static_cast<long long>(a.C) * a.HW;
   if constexpr (!kHwc) {
@@ -1433,17 +1447,23 @@ __global__ void __launch_bounds__(kEpiThreads) cnn_epilogue_kernel(EpiArgs a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) p[j] = smem_epi[(4 * q + j) / a.HW];
     const float4* src = reinterpret_cast<const float4*>(a.y) + q;
+    const float4* skp = reinterpret_cast<const float4*>(a.skip) + q;
     float4* dst = reinterpret_cast<float4*>(a.out) + q;
+    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const long long nb = a.nb;
     long long b = lane / Q;
     for (; b + 3 * nb < a.B; b += 4 * nb) {
-      float4 v[4];
+      float4 v[4], s[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = src[(b + i * nb) * Q];
+      for (int i = 0; i < 4; ++i) {
+        v[i] = src[(b + i * nb) * Q];
+        s[i] = kSkip ? skp[(b + i * nb) * Q] : none;
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dst[(b + i * nb) * Q] = epi(v[i], p);
+      for (int i = 0; i < 4; ++i) dst[(b + i * nb) * Q] = epi<kBias, kSkip>(v[i], p, s[i]);
     }
-    for (; b < a.B; b += nb) dst[b * Q] = epi(src[b * Q], p);
+    for (; b < a.B; b += nb)
+      dst[b * Q] = epi<kBias, kSkip>(src[b * Q], p, kSkip ? skp[b * Q] : none);
   } else {
     const int C = a.C, HW = a.HW, P = a.nb, S = C | 1;
     float* tiles = reinterpret_cast<float*>(smem_epi + C);  // two tiles of P S floats
@@ -1477,37 +1497,25 @@ __global__ void __launch_bounds__(kEpiThreads) cnn_epilogue_kernel(EpiArgs a) {
       const float* tile = tiles + buf * P * S;
       float* dst = a.out + ((u / per_board) * HW + p0) * C;
       for (int o = threadIdx.x, pp = threadIdx.x / C; o < np * C; o += blockDim.x, pp += dp)
-        dst[o] = epi(tile[pp * S + c], prm);
+        dst[o] = epi<kBias, false>(tile[pp * S + c], prm, 0.0f);
       __syncthreads();  // this buffer is read before the stage after next refills it
     }
   }
 }
 
-// cnn_epilogue_kernel's launch shape on the current device: plan = [CTAs,
-// shared bytes, nb (NCHW: board lanes) or P (HWC: positions a tile)].  NCHW
-// takes as many threads as fill every SM at its occupancy, Q positions x nb
-// boards (nb at most B); HWC one CTA a tile, at most a full wave.  The last
-// plan of each form is kept, so a launch with the same shapes on the same
-// device asks the runtime nothing more.
-cudaError_t epi_plan(bool hwc, int B, int C, int HW, int* plan) {
+// cnn_epilogue_kernel's launch shape on device dev for the instance fn:
+// plan = [CTAs, shared bytes, nb (NCHW: board lanes) or P (HWC: positions a
+// tile)].  NCHW takes as many threads as fill every SM at its occupancy, Q
+// positions x nb boards (nb at most B); HWC one CTA a tile, at most a full
+// wave.
+cudaError_t epi_plan(const void* fn, bool hwc, int dev, int B, int C, int HW, int* plan) {
   if (B < 1 || C < 1 || HW < 1) return cudaErrorInvalidValue;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  static std::mutex mu;
-  static int last[2][7] = {{-1}, {-1}};  // dev, B, C, HW, then the plan
-  std::lock_guard<std::mutex> lock(mu);
-  const int key[4] = {dev, B, C, HW};
-  if (std::equal(key, key + 4, last[hwc])) {
-    std::copy(last[hwc] + 4, last[hwc] + 7, plan);
-    return cudaSuccess;
-  }
+  int n_sm = 0, per_sm = 0;
+  cudaError_t e;
   const int S = C | 1;
   const int P = hwc ? std::max(1, std::min(HW, kEpiTileFloats / S)) : 0;
   const long long bytes = 16LL * C + 2 * 4LL * P * S;
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  const void* fn = hwc ? reinterpret_cast<const void*>(cnn_epilogue_kernel<true>)
-                       : reinterpret_cast<const void*>(cnn_epilogue_kernel<false>);
   if ((e = allow_smem(fn, static_cast<int>(bytes))) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
@@ -1526,9 +1534,35 @@ cudaError_t epi_plan(bool hwc, int B, int C, int HW, int* plan) {
     plan[2] = static_cast<int>(nb);
   }
   plan[1] = static_cast<int>(bytes);
-  std::copy(key, key + 4, last[hwc]);
-  std::copy(plan, plan + 3, last[hwc] + 4);
   return cudaSuccess;
+}
+
+// one launch of the instance (kHwc, kBias, kSkip) of cnn_epilogue_kernel.
+// The instance keeps its last plan, so a launch with the same shapes on the
+// same device asks the runtime nothing more.
+template <bool kHwc, bool kBias, bool kSkip>
+int epi_launch(EpiArgs a, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(cnn_epilogue_kernel<kHwc, kBias, kSkip>);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static std::mutex mu;
+  static int last[7] = {-1};  // dev, B, C, HW, then the plan
+  int plan[3];
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const int key[4] = {dev, a.B, a.C, a.HW};
+    if (!std::equal(key, key + 4, last)) {
+      e = epi_plan(fn, kHwc, dev, a.B, a.C, a.HW, plan);  // raises the shared-memory limit
+      if (e != cudaSuccess) return static_cast<int>(e);
+      std::copy(key, key + 4, last);
+      std::copy(plan, plan + 3, last + 4);
+    }
+    std::copy(last + 4, last + 7, plan);
+  }
+  a.nb = plan[2];
+  cnn_epilogue_kernel<kHwc, kBias, kSkip><<<plan[0], kEpiThreads, plan[1], st>>>(a);
+  return finish_launch();
 }
 }  // namespace
 
@@ -1829,28 +1863,30 @@ int hex_mlp_forward_plan(int F, int H, int A, int n_layers, int B, int* plan) {
 
 // The CNN forward's epilogue (cnn_epilogue_kernel) over the conv's output y
 // (B, C, HW) without its bias: with hwc 0 in place, out == y; with hwc 1
-// into out, a new (B, HW, C) buffer.  conv_bias, mean, mul and bn_bias are
-// (C,) each.  y and out 16-byte aligned, C HW a multiple of 4 and C a
-// divisor of 256, else cudaErrorInvalidValue.
+// into out, a new (B, HW, C) buffer.  mean, mul and bn_bias are (C,) each;
+// conv_bias is (C,) or null (no bias), skip is y's shape or null (no skip).
+// y, out and skip 16-byte aligned, C HW a multiple of 4, C a divisor of 256,
+// hwc with a conv bias and no skip, and a skip without a conv bias (the
+// instances the CNN and the residual tower launch), else
+// cudaErrorInvalidValue.
 int hex_cnn_epilogue(const void* y, const void* conv_bias, const void* mean, const void* mul,
-                     const void* bn_bias, void* out, int B, int C, int HW, int hwc, void* stream) {
-  if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out)) % 16 != 0 ||
-      C < 1 || kEpiThreads % C != 0 || static_cast<long long>(C) * HW % 4 != 0)
+                     const void* bn_bias, const void* skip, void* out, int B, int C, int HW,
+                     int hwc, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(skip)) % 16 != 0 ||
+      C < 1 || kEpiThreads % C != 0 || static_cast<long long>(C) * HW % 4 != 0 ||
+      (hwc && (conv_bias == nullptr || skip != nullptr)) ||
+      (skip != nullptr && conv_bias != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  int plan[3];
-  const cudaError_t e = epi_plan(hwc != 0, B, C, HW, plan);  // raised the shared-memory limit
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const EpiArgs a{static_cast<const float*>(y),    static_cast<const float*>(conv_bias),
-                  static_cast<const float*>(mean), static_cast<const float*>(mul),
-                  static_cast<const float*>(bn_bias), static_cast<float*>(out),
-                  B, C, HW, plan[2]};
+  const EpiArgs a{static_cast<const float*>(y),       static_cast<const float*>(conv_bias),
+                  static_cast<const float*>(mean),    static_cast<const float*>(mul),
+                  static_cast<const float*>(bn_bias), static_cast<const float*>(skip),
+                  static_cast<float*>(out),           B, C, HW, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hwc) {
-    cnn_epilogue_kernel<true><<<plan[0], kEpiThreads, plan[1], st>>>(a);
-  } else {
-    cnn_epilogue_kernel<false><<<plan[0], kEpiThreads, plan[1], st>>>(a);
-  }
-  return finish_launch();
+  if (hwc) return epi_launch<true, true, false>(a, st);
+  if (skip != nullptr) return epi_launch<false, false, true>(a, st);
+  return conv_bias != nullptr ? epi_launch<false, true, false>(a, st)
+                              : epi_launch<false, false, false>(a, st);
 }
 
 }  // extern "C"

@@ -7,6 +7,13 @@ Families (``scripts/experiments/*.py`` of the reference):
 - ``MLP-wide-deep``: pi/vf [128]*4, ReLU
 - ``CNN``: conv 1->64 + four 64->64 convs with BatchNorm, features 128,
   pi/vf [128, 128], ReLU (``models/cnn.py``)
+
+and one beyond the reference's grid:
+
+- ``AZ-ResNet``: the AlphaZero residual tower, a 3x3 conv block and 19
+  residual blocks of 256 filters, its policy and value heads
+  (``models/resnet.py``); the rating match plays it, the trainer has no
+  opponent-bank path for it
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 
 from hex_gym_env_tpu_torch.models.cnn import CnnPolicy
 from hex_gym_env_tpu_torch.models.mlp import MlpPolicy
+from hex_gym_env_tpu_torch.models.resnet import ResNetPolicy
 
 
 # each family's module class and the widths it is built with
@@ -25,6 +33,7 @@ _FAMILIES = {
     "MLP-wide-deep": (MlpPolicy, {"pi_layers": (128,) * 4, "vf_layers": (128,) * 4,
                                   "activation": "relu"}),
     "CNN": (CnnPolicy, {}),
+    "AZ-ResNet": (ResNetPolicy, {"filters": 256, "blocks": 19, "value_hidden": 256}),
 }
 
 
@@ -34,9 +43,15 @@ def _family(family: str):
     return _FAMILIES[family]
 
 
-def make_policy(
-    family: str, n_actions: int, generator: torch.Generator | None = None
-) -> MlpPolicy | CnnPolicy:
+Policy = MlpPolicy | CnnPolicy | ResNetPolicy
+
+
+def family_class(family: str) -> type:
+    """The module class of ``family``."""
+    return _family(family)[0]
+
+
+def make_policy(family: str, n_actions: int, generator: torch.Generator | None = None) -> Policy:
     """Build a policy module (on the CPU) for one of the reference's
     families, initialised from ``generator`` (the orthogonal weights) and
     torch's default generator (``nn.Linear``'s and ``nn.Conv2d``'s own
@@ -45,7 +60,7 @@ def make_policy(
     return cls(n_actions, generator=generator, **widths)
 
 
-def policy_template(family: str, n_actions: int) -> MlpPolicy | CnnPolicy:
+def policy_template(family: str, n_actions: int) -> Policy:
     """A fresh module (on the CPU) of ``family`` with no initialisation:
     every conv and dense weight and bias zero, BatchNorm at its ones and
     zeros, no generator read.  ``models/loading`` reads its names, shapes
@@ -55,4 +70,5 @@ def policy_template(family: str, n_actions: int) -> MlpPolicy | CnnPolicy:
     return cls(n_actions, init=False, **widths)
 
 
-__all__ = ["CnnPolicy", "MlpPolicy", "make_policy", "policy_template"]
+__all__ = ["CnnPolicy", "MlpPolicy", "ResNetPolicy", "family_class", "make_policy",
+           "policy_template"]

@@ -59,14 +59,15 @@ def assign(module: nn.Module, state: Mapping[str, torch.Tensor]) -> None:
 
 
 class Bare:
-    """A layer whose constructor fills its weight and bias with zeros in
-    place of ``reset_parameters``' draws: no generator is read, and one
-    pass writes each tensor."""
+    """A layer whose constructor fills its weight and bias (where it has
+    one) with zeros in place of ``reset_parameters``' draws: no generator is
+    read, and one pass writes each tensor."""
 
     def reset_parameters(self) -> None:
         with torch.no_grad():
             self.weight.zero_()
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
 
 class BareLinear(Bare, nn.Linear):

@@ -1,8 +1,8 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
 The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4, the
-random-legal rollout K7, the match's policy forward and the CNN forward's
-epilogue) and
+random-legal rollout K7, the match's policy forward and the conv
+forwards' epilogue) and
 ``csrc/learner_kernels.cu`` (the learner's K5-K6), with the shared device
 code in ``csrc/hex_common.cuh``, behind a plain C interface.  On first use
 each ``.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once
@@ -50,7 +50,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 KERNELS = (
     "k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
     "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout", "mlp_forward", "mlp_image",
-    "cnn_epilogue",
+    "cnn_epilogue", "cnn_epilogue_residual",
 )
 _COUNTER = {name: f"launch.{name}" for name in KERNELS}
 
@@ -115,7 +115,7 @@ _ARGTYPES = {
     "hex_mlp_image": [P, P, I, I, I, I, P, P],  # pointers, strides (host arrays), dims, out
     "hex_mlp_forward": [P, I, I, I, I, I, P, P, P, I, P],  # image, dims, x, logits, value, B
     "hex_mlp_forward_plan": [I] * 5 + [P],  # launches nothing: no stream
-    "hex_cnn_epilogue": [P] * 6 + [I, I, I, I, P],  # y, 4 vectors, out; B, C, HW, hwc
+    "hex_cnn_epilogue": [P] * 7 + [I, I, I, I, P],  # y, 4 vectors, skip, out; B, C, HW, hwc
 }
 
 _lock = threading.Lock()

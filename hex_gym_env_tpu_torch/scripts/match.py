@@ -17,7 +17,9 @@ one call of the module; the model picks its kernels.  On the card an MLP
 side forwards as one launch of the forward kernel (``MlpPolicy.bind``
 builds the image of its weights in one launch, ``ops/mlp_forward``), and a
 CNN side's layers are cuDNN's conv and one launch of the epilogue kernel
-each (``ops/cnn_epilogue``), then cuBLAS; on the CPU every side runs its
+each (``ops/cnn_epilogue``), then cuBLAS; an AZ-ResNet side's 3x3 layers
+likewise, a residual block's second with the skip operand, and its heads
+on the eager chain (``models/resnet.py``); on the CPU every side runs its
 plain PyTorch forward.  Samples are Gumbel-max draws over
 32-bit words (``ops/masked.sample``), drawn from a ``torch.Generator``
 seeded by ``--seed`` or given as ``bits``; the JAX package draws from its
@@ -33,7 +35,10 @@ counts ``matches``, ``host_syncs``, the loads' ``h2d_bytes``, and
 ``forwards`` (one a side each ply, whichever kernels run).  ``ply.forward``
 takes the device clock (its ``device_ms`` in ``span_table``), and a CNN
 side's forward opens ``forward.conv``, ``forward.norm`` (5 each) and
-``forward.dense`` inside it (``models/cnn.py``).  ``--profile DIR``
+``forward.dense`` inside it (``models/cnn.py``), an AZ-ResNet side's
+``forward.conv``, ``forward.norm`` (one each a 3x3 layer, 39 at 19 blocks)
+and ``forward.heads`` (``models/resnet.py``), and counts
+``residual_blocks``.  ``--profile DIR``
 plays the match inside ``profiling.trace(DIR)``: it writes
 ``DIR/trace.json`` with the spans as ``hex.*`` ranges and prints, to
 stderr, a line per span name (calls, total and self ms) and the counters.
@@ -108,7 +113,9 @@ def run_match(board_size: int, games: int, spec_a: str, spec_b: str,
     side's holds five ``forward.conv`` (cuDNN's conv), five
     ``forward.norm`` (the conv's bias, BatchNorm and ReLU: on the card one
     launch of the epilogue kernel) and one ``forward.dense`` (the flatten,
-    features, towers and heads), each with the device clock too.
+    features, towers and heads), each with the device clock too; an
+    AZ-ResNet side's a ``forward.conv`` and a ``forward.norm`` a 3x3 layer
+    and one ``forward.heads``.
     """
     with profiling.span("match", unit=next(_match_ids)):
         profiling.count("matches")

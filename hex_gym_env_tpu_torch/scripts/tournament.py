@@ -9,6 +9,11 @@ reported on the Elo scale anchored at the first player = 0.
     python -m hex_gym_env_tpu_torch.scripts.tournament --board-size 7 --games 512 \\
         random params:hex_gym_env_tpu_torch/models/agents/7x7_strict_sb3.pt
 
+``--family`` names the policy family of every ``params:`` player
+(``models._FAMILIES``; ``MLP-default`` unless given), so a tournament of
+AlphaZero-style nets is ``--board-size 11 --family AZ-ResNet params:a.pt
+params:b.pt ...``.
+
 The reference has no rating machinery (its ``config.ini`` ``[ELO]`` section
 is vestigial upstream-HexHex content that nothing reads — SURVEY.md §2);
 this tool supplies the capability natively.
@@ -44,16 +49,17 @@ def fit_elo(n_players: int, wins: dict, games: dict, iters: int = 200):
 
 
 def run_tournament(players: Sequence[str], board_size: int = 7, games: int = 512,
-                   seed: int = 0, device=None):
+                   seed: int = 0, device=None, family: str = "MLP-default"):
     """Every pair's match result (in pair order) and each player's Elo (in
-    player order)."""
+    player order); every player of ``family``."""
     n = len(players)
     wins: dict = {}
     decided: dict = {}
     results = []
     for i, j in itertools.combinations(range(n), 2):
         r = run_match(board_size, games, players[i], players[j],
-                      seed=seed + 1000 * i + j, device=device)
+                      seed=seed + 1000 * i + j, family_a=family, family_b=family,
+                      device=device)
         decided[(i, j)] = r["games"] - r["undecided"]
         wins[(i, j)] = r["a_winrate"] * r["games"]
         wins[(j, i)] = r["b_winrate"] * r["games"]
@@ -69,11 +75,13 @@ def main() -> None:
     ap.add_argument("--board-size", type=int, default=7)
     ap.add_argument("--games", type=int, default=512, help="games per pair")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--family", default="MLP-default",
+                    help="policy family of every player (models._FAMILIES)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain step)")
     args = ap.parse_args()
 
     results, elo = run_tournament(args.players, args.board_size, args.games, args.seed,
-                                  device="cpu" if args.cpu else None)
+                                  device="cpu" if args.cpu else None, family=args.family)
     for r in results:
         print(json.dumps({"a": r["a"], "b": r["b"], "a_winrate": r["a_winrate"]}))
     table = sorted(zip(args.players, elo), key=lambda t: -t[1])

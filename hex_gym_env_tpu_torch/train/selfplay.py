@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from hex_gym_env_tpu_torch.core.topology import HexTopology, get_topology
-from hex_gym_env_tpu_torch.models import make_policy
+from hex_gym_env_tpu_torch.models import CnnPolicy, MlpPolicy, family_class, make_policy
 from hex_gym_env_tpu_torch.ops import gae_kernel, ppo_kernel
 from hex_gym_env_tpu_torch.train import ppo
 from hex_gym_env_tpu_torch.train.bank import OpponentBank, init_bank
@@ -53,10 +53,16 @@ class TrainMetrics(NamedTuple):
 
 class SelfplayPPO:
     """Builder wiring topology, model, runner, learner and evaluator on one
-    device (``device=None`` means ``cuda``, which must exist)."""
+    device (``device=None`` means ``cuda``, which must exist).  The policy
+    family must have an opponent-bank path: an MLP's or a CNN's
+    (``train/rollout.py``); any other raises a ``ValueError``."""
 
     def __init__(self, cfg: TrainConfig, device=None):
         cfg.ppo.validate(cfg.selfplay.n_envs)
+        family = cfg.selfplay.policy
+        if not issubclass(family_class(family), (MlpPolicy, CnnPolicy)):
+            raise ValueError(f"policy family {family!r} has no opponent-bank path in the trainer "
+                             "(an MLP's or a CNN's); it plays only in matches")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.topo: HexTopology = get_topology(cfg.selfplay.board_size)

@@ -168,6 +168,13 @@ forward with and without it; then the ``[resnet epilogue]`` phase, the same
 for the kernel's residual launch (the skip operand) at the AZ-ResNet
 match's shape, beside the plain in-place launch there, and the AZ-ResNet
 forward with and without it.
+
+    python3 chip_smoke.py --conv-only
+
+only builds the kernels and runs the ``[resnet conv]`` phase: the residual
+tower's Winograd conv against float64 ``F.conv2d`` and its plain version at
+the AZ-ResNet match's shape, its times beside its bounds and cuDNN's conv,
+and the cell's agent's forward with the tower on it and on cuDNN.
 """
 
 from __future__ import annotations
@@ -1525,6 +1532,30 @@ def mlp_forward_phase(dev) -> dict:
 EPI_N, EPI_B = 9, 4096  # the CNN match's boards
 RES_N, RES_B, RES_C = 11, 400, 256  # the AZ-ResNet match's boards and filters
 EPI_REPS = 200
+# The AZ-ResNet forward with its tower's 38 convs on the Winograd kernels
+# against the eager forward (cuDNN's convs), as a share of the eager
+# forward's largest logit: each F(4x4, 3x3) conv rounds ~1.6e-6 of its
+# output's RMS (tests/test_torch_winograd.py), ten times a direct conv's;
+# through 19 blocks with BatchNorm that came to ~3e-5 of the logits' std on
+# the CPU (float64 as the yardstick).  1e-4 of the largest logit leaves
+# room for the card's other summation orders; a wrong tile or transform
+# moves logits by a share of order 1.
+RES_FORWARD_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def images_dropped(model):
+    """Inside: every 3x3 conv of the AZ-ResNet ``model`` without its filter
+    image, so it runs ``F.conv2d`` as the eager chain does; restored after."""
+    layers = [model.conv_in] + [h for b in model.blocks for h in (b.a, b.b)]
+    images = [layer.image for layer in layers]
+    try:
+        for layer in layers:
+            layer.image = None
+        yield
+    finally:
+        for layer, image in zip(layers, images):
+            layer.image = image
 
 
 def epilogue_times(tag: str, label: str, shape: tuple, kernel, twin, library,
@@ -1551,14 +1582,18 @@ def epilogue_times(tag: str, label: str, shape: tuple, kernel, twin, library,
 
 
 def forward_paths(tag: str, cls, fwd, launches: dict, reps: int, profiled: int,
-                  flops: float = 0.0) -> dict:
+                  flops: float = 0.0, held=None, rel_tol: float = 0.0) -> dict:
     """A policy's inference forward ``fwd`` with the epilogue kernel and on
     the eager chain (``cls._fuses`` refused): each kernel of ``launches``
     launched as often as it says in one forward on the kernel, the outputs
     bit for bit, the time of each path by CUDA events (``reps`` forwards)
     and its device ops (``profiled`` forwards), printed under ``tag``; with
     ``flops``, a forward's operations, also its share of the float32 peak.
-    Returns the times, ms a forward."""
+    ``held``, where given, is a context in which the forward's convs run as
+    the eager chain runs them (the AZ-ResNet's filter images dropped): the
+    forward held so is the eager forward bit for bit, and the forward as it
+    runs is within ``rel_tol`` of the eager forward's largest logit.
+    Returns the times, ms a forward, and that gap."""
     import torch
 
     from hex_gym_env_tpu_torch.ops import cuda_lib
@@ -1570,6 +1605,8 @@ def forward_paths(tag: str, cls, fwd, launches: dict, reps: int, profiled: int,
         fail(f"[{tag}] a forward launched {dict(cuda_lib.launches)}")
     fwd_ms = cuda_ms(fwd, reps)
     _, fwd_busy, fwd_top, _ = device_profile(lambda: [fwd() for _ in range(profiled)])
+    with held() if held is not None else contextlib.nullcontext():
+        h_logits, h_value = fwd()
     fuses = cls._fuses
     cls._fuses = lambda self, x, train: False
     try:
@@ -1578,8 +1615,15 @@ def forward_paths(tag: str, cls, fwd, launches: dict, reps: int, profiled: int,
         _, eager_busy, eager_top, _ = device_profile(lambda: [fwd() for _ in range(profiled)])
     finally:
         cls._fuses = fuses
-    if not (torch.equal(logits, e_logits) and torch.equal(value, e_value)):
+    if not (torch.equal(h_logits, e_logits) and torch.equal(h_value, e_value)):
         fail(f"[{tag}] the forward with the kernel is not the eager forward bit for bit")
+    gap = max(float((logits - e_logits).abs().max()), float((value - e_value).abs().max()))
+    scale = float(e_logits.abs().max())
+    print(f"[{tag}] forward as it runs against the eager forward: largest gap {gap:.4g} "
+          f"({gap / scale:.4g} of the largest logit, {scale:.4g}; limit {rel_tol:.4g})")
+    if gap > rel_tol * scale:
+        fail(f"[{tag}] the forward is {gap:.4g} from the eager forward, past {rel_tol} of "
+             f"its largest logit")
     for label, ms, busy, top in (("kernel", fwd_ms, fwd_busy, fwd_top),
                                  ("eager chain", eager_fwd_ms, eager_busy, eager_top)):
         ops = "; ".join(f"{k[:48]} {v / profiled:.1f} us" for k, v in top)
@@ -1589,7 +1633,7 @@ def forward_paths(tag: str, cls, fwd, launches: dict, reps: int, profiled: int,
               f"busy {busy / profiled / 1e3:.4f} ms ({ops})")
     return {"forward_ms": {"kernel": fwd_ms, "eager": eager_fwd_ms},
             "forward_busy_ms": {"kernel": fwd_busy / profiled / 1e3,
-                                "eager": eager_busy / profiled / 1e3}}
+                                "eager": eager_busy / profiled / 1e3}, "forward_gap": gap}
 
 
 def epilogue_phase(dev) -> dict:
@@ -1675,10 +1719,12 @@ def residual_phase(dev) -> dict:
     its call and device times beside the bound by bytes (y and the skip
     read, the output written), the twin, the ATen chain it displaces and
     the plain in-place launch (no bias, no skip) at the same shape; and the
-    AZ-ResNet forward (``ResNetPolicy``, grad off) with the kernel and on
-    the eager chain, bit for bit, its time by CUDA events and its device
-    ops.  Returns the kernel table's row, its launches those counted in one
-    forward."""
+    AZ-ResNet forward (``ResNetPolicy``, grad off, bound as a match binds
+    it) with the kernel and on the eager chain, bit for bit with the convs
+    held on cuDNN's path (the filter images dropped) and within
+    ``RES_FORWARD_TOL`` as it runs (the tower's convs on the Winograd
+    kernels), its time by CUDA events and its device ops.  Returns the
+    kernel table's row, its launches those counted in one forward."""
     import torch
     import torch.nn.functional as F
 
@@ -1696,6 +1742,7 @@ def residual_phase(dev) -> dict:
             layer.bn.mean.copy_(noise[2])
             layer.bn.var.copy_(torch.exp(noise[3]))
     model = model.to(dev)
+    model.bind(dict(model.state_dict()))
     boards = torch.randint(-1, 2, (B, n, n), generator=g).to(dev, torch.float32)
     layer = model.blocks[0].b
     bn = layer.bn
@@ -1733,8 +1780,9 @@ def residual_phase(dev) -> dict:
         blocks = len(model.blocks)
         flops = B * (2.0 * 9 * C * n * n + 2 * blocks * 2.0 * 9 * C * C * n * n)
         forwards = forward_paths("resnet epilogue", resnet.ResNetPolicy, lambda: model(boards),
-                                 {"cnn_epilogue": 1 + blocks, "cnn_epilogue_residual": blocks},
-                                 10, 5, flops)
+                                 {"cnn_epilogue": 1 + blocks, "cnn_epilogue_residual": blocks,
+                                  "winograd_conv": 2 * blocks},
+                                 10, 5, flops, lambda: images_dropped(model), RES_FORWARD_TOL)
     t = times["residual"]
     return {"name": "cnn_epilogue_residual", "route": "cuda",
             "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu", "replaces": None,
@@ -1742,6 +1790,138 @@ def residual_phase(dev) -> dict:
             "ms": t["call"], "device_ms": t["device"], "plain_ms": t["twin"],
             "bound_ms": t["bound"], "bound_by": "bytes", "library_ms": t["library"],
             "library_device_ms": t["library_device"], "in_place": times["in place"], **forwards}
+
+
+# the Winograd conv against float64 F.conv2d (tests/test_torch_winograd.py's
+# limits and their derivation): a share of the output's RMS and of its
+# largest magnitude
+CONV_RMS_TOL, CONV_MAX_TOL = 4e-6, 1.5e-5
+WINO_KERNELS = ("wino_input_kernel", "wino_gemm_kernel", "wino_output_kernel")
+
+
+def conv_phase(dev) -> dict:
+    """``[resnet conv]``: the residual tower's Winograd F(4x4, 3x3) conv
+    (``ops/winograd``) at the AZ-ResNet match's shape (11x11, 400 boards,
+    256 channels; a block's conv of the benchmark cell's agent, bound as a
+    match binds it, on ReLU'd boards): the kernels against float64
+    ``F.conv2d`` and against the plain version; the call and device times,
+    each of the three kernels' too, beside two bounds, Winograd's
+    operations and the direct conv's; the plain version's time; cuDNN's
+    ``F.conv2d`` in full float32 (the call the tower made before: the
+    library time); the filter image's build; and the agent's forward with
+    the tower on the kernels and on cuDNN (the images dropped): its time,
+    its largest logit gap and the memory peak.  Returns the kernel table's
+    row, its launches those counted in one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark import harness, work_resnet
+    from hex_gym_env_tpu_torch.models import cnn, resnet
+    from hex_gym_env_tpu_torch.ops import cuda_lib, winograd
+
+    n, B, C = RES_N, RES_B, RES_C
+    drv = harness.load_module(harness.driver_file("match_resnet"), "smoke_resnet_conv")
+    params, _ = drv.make(work_resnet.ResNet("ResNet", n, C, 19, 256), 2024, dev, 2.0, 0.1,
+                         drv.match.AGENT_BN_STD)
+    model = resnet.ResNetPolicy(n * n, init=False).to(dev)
+    model.bind(params)
+    blocks = len(model.blocks)
+    g = torch.Generator().manual_seed(2024)
+    boards = torch.randint(-1, 2, (B, n, n), generator=g).to(dev, torch.float32)
+    layer = model.blocks[0].a
+    w, u = layer.conv.weight.detach(), layer.image.u
+    with torch.no_grad(), cnn.full_float32():
+        x = torch.relu(torch.randn((B, C, n, n), generator=g)).to(dev)
+        cuda_lib.reset_launches()
+        y = winograd.conv(x, u)
+        twin = winograd.conv_twin(x, u)
+        lib = F.conv2d(x, w, None, padding=1)
+        want = F.conv2d(x.double(), w.double(), padding=1)
+        torch.cuda.synchronize()
+        if cuda_lib.launches["winograd_conv"] != 1:
+            fail(f"[resnet conv] a call launched {dict(cuda_lib.launches)}")
+        scale, rms_scale = float(want.abs().max()), float(want.pow(2).mean().sqrt())
+        errs = {}
+        for label, t in (("kernel", y), ("twin", twin), ("cudnn", lib)):
+            err = t.double() - want
+            errs[label] = (float(err.pow(2).mean().sqrt()) / rms_scale,
+                           float(err.abs().max()) / scale)
+        kernel_twin = float((y - twin).abs().max()) / scale
+        print(f"[resnet conv] against float64 F.conv2d, {n}x{n}, {B} boards, {C} channels "
+              f"(share of the RMS, of the largest output): " + "; ".join(
+                  f"{k} {r:.3g}, {m:.3g}" for k, (r, m) in errs.items())
+              + f"; kernel against the plain version {kernel_twin:.3g} of the largest")
+        if not (errs["kernel"][0] < CONV_RMS_TOL and errs["kernel"][1] < CONV_MAX_TOL
+                and kernel_twin < 2 * CONV_MAX_TOL):
+            fail(f"[resnet conv] the kernels are not the conv: {errs}, {kernel_twin}")
+
+        def kernel():
+            return winograd.conv(x, u)
+
+        def library():
+            return F.conv2d(x, w, None, padding=1)
+
+        rows = winograd.padded_rows(B, n)
+        tiles = B * winograd.tiles(n) ** 2
+        flops = 2.0 * winograd.POINTS * tiles * C * C
+        direct_flops = 2.0 * 9 * C * C * n * n * B
+        nbytes = 2 * 4 * B * C * n * n + 4 * winograd.POINTS * C * C
+        bound, by = bound_ms(nbytes, flops)
+        direct_bound, _ = bound_ms(nbytes, direct_flops)
+        call = cuda_ms(kernel, 50)
+        dev_ms = device_ms(kernel, WINO_KERNELS, 20)
+        parts = {k: device_ms(kernel, [k], 20) for k in WINO_KERNELS}
+        twin_ms = cuda_ms(lambda: winograd.conv_twin(x, u), 5)
+        lib_ms = cuda_ms(library, 50)
+        _, lib_busy, lib_top, _ = device_profile(lambda: [library() for _ in range(10)])
+        image_ms = cuda_ms(lambda: winograd.filter_image(w), 10)
+        scratch = 4 * winograd.POINTS * C * rows  # V or M
+        act = 4 * B * C * n * n
+        gemm = parts["wino_gemm_kernel"]
+        print(f"[resnet conv] call {call:.5f} ms, device {dev_ms:.5f} ms (input "
+              f"{parts['wino_input_kernel']:.5f}: {(act + scratch) / parts['wino_input_kernel'] / 1e9:.3f} "
+              f"TB/s; product {gemm:.5f}: {flops / gemm / 1e9:.2f} TFLOP/s needed, "
+              f"{2.0 * winograd.POINTS * rows * C * C / gemm / 1e9:.2f} as run over {rows} rows; "
+              f"output {parts['wino_output_kernel']:.5f}: "
+              f"{(act + scratch) / parts['wino_output_kernel'] / 1e9:.3f} TB/s); bound "
+              f"{bound:.5f} ms ({by}: {flops / 1e9:.2f} GFLOP), {100 * bound / dev_ms:.1f}% of it; "
+              f"the direct conv's bound {direct_bound:.5f} ms ({direct_flops / 1e9:.2f} GFLOP), "
+              f"{100 * direct_bound / dev_ms:.1f}% of it; plain version {twin_ms:.4f} ms; cuDNN's "
+              f"F.conv2d {lib_ms:.5f} ms a call, device {lib_busy / 10 / 1e3:.5f} ms ("
+              + "; ".join(f"{k[:48]} {v / 10:.1f} us" for k, v in lib_top)
+              + f"); the filter image {image_ms:.4f} ms")
+
+    def fwd():
+        return model(boards)
+
+    with torch.no_grad():
+        cuda_lib.reset_launches()
+        logits, value = fwd()
+        torch.cuda.synchronize()
+        if cuda_lib.launches["winograd_conv"] != 2 * blocks:
+            fail(f"[resnet conv] a forward launched {dict(cuda_lib.launches)}")
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = cuda_ms(fwd, 10)
+        peak = torch.cuda.max_memory_allocated()
+        _, busy, top, _ = device_profile(lambda: [fwd() for _ in range(3)])
+        with images_dropped(model):
+            c_logits, c_value = fwd()
+            cudnn_ms = cuda_ms(fwd, 10)
+        gap = float((logits - c_logits).abs().max())
+    ops = "; ".join(f"{k[:48]} {v / 3:.1f} us" for k, v in top)
+    print(f"[resnet conv] the cell's agent's forward, {B} boards: Winograd {fwd_ms:.4f} ms, "
+          f"device busy {busy / 3 / 1e3:.4f} ms ({ops}); cuDNN's convs {cudnn_ms:.4f} ms; "
+          f"logits std {float(c_logits.std()):.4g}, largest gap {gap:.4g}, values' "
+          f"{float((value - c_value).abs().max()):.4g}; memory peak {peak} bytes")
+    return {"name": "winograd_conv", "route": "cuda",
+            "source": "hex_gym_env_tpu_torch/csrc/winograd_kernels.cu", "replaces": None,
+            "launches": 2 * blocks, "launches_per": "forward", "max_abs_err": errs["kernel"][1],
+            "rms_err": errs["kernel"][0], "ms": call, "device_ms": dev_ms, "kernels_ms": parts,
+            "plain_ms": twin_ms, "bound_ms": bound, "bound_by": by,
+            "direct_bound_ms": direct_bound, "library_ms": lib_ms,
+            "library_device_ms": lib_busy / 10 / 1e3, "image_ms": image_ms,
+            "forward_ms": {"winograd": fwd_ms, "cudnn": cudnn_ms}, "logit_gap": gap,
+            "memory_peak_bytes": peak}
 
 
 def compat_phase(dev) -> dict:
@@ -3140,7 +3320,8 @@ def main(dev) -> None:
     mlp_row = mlp_forward_phase(dev)
     epilogue_row = epilogue_phase(dev)
     residual_row = residual_phase(dev)
-    print(f"[match + compat + mlp forward + cnn and resnet epilogues] phases "
+    conv_row = conv_phase(dev)
+    print(f"[match + compat + mlp forward + cnn and resnet epilogues + resnet conv] phases "
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 13. the training entry points, data-parallel training, the scripts -------------
@@ -3191,6 +3372,7 @@ def main(dev) -> None:
     rows.append(mlp_row)
     rows.append(epilogue_row)
     rows.append(residual_row)
+    rows.append(conv_row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3248,6 +3430,7 @@ MODES = {
     "--epilogue-only": Mode((), True, (("cnn epilogue", epilogue_phase, "cnn_epilogue"),
                                        ("resnet epilogue", residual_phase,
                                         "cnn_epilogue_residual"))),
+    "--conv-only": Mode((), True, (("resnet conv", conv_phase, "winograd_conv"),)),
     "--split-only": Mode(("LABEL",), True,
                          (("split {}", lambda dev, label: phase_splits(label), None),)),
     "--env-kernels": Mode(("LABEL", "ROOT"), False,

@@ -21,11 +21,19 @@ returns the new running statistics by state-dict key, as ``CnnPolicy``
 does.  Weights are orthogonal with SB3's gains (sqrt(2) for the convs and
 the value head's hidden layer, 0.01 for the action head, 1 for the value
 head), biases zero; with ``init`` off the module is built bare (zero, no
-draw), the loader's template.  ``bind`` is ``models/mlp.assign``.
+draw), the loader's template.
 
-Convolutions run in full float32 (``cnn.full_float32``).  At inference on
-the card (float32 on a CUDA device, grad off; ``CnnPolicy``'s rule) each
-3x3 conv is cuDNN's conv, then one launch of ``ops/cnn_epilogue``'s kernel
+Convolutions run in full float32 (``cnn.full_float32``).  ``bind`` takes
+the state dict as the module's own (``models/mlp.assign``), then, for each
+3x3 conv that ``ops/winograd.takes`` (C_in = C_out a multiple of 128, the
+weight float32 on a CUDA device: the tower's convs, not the input conv),
+builds its filter image once (``winograd.FilterImage``: the Winograd
+F(4x4, 3x3) transform of the bound weight, in float64, rounded once), kept
+on the layer as ``image``.  At inference on the card (float32 on a CUDA
+device, grad off; ``CnnPolicy``'s rule) each 3x3 conv with a current image
+is ``winograd.conv`` (hand-written float32 FFMA kernels, counted as
+``launch.winograd_conv``), another (the input conv) cuDNN's conv; then one
+launch of ``ops/cnn_epilogue``'s kernel
 for BatchNorm and the ReLU, in place; a block's second layer launches with
 the block's input as the skip operand (``cnn_epilogue.residual``, counted
 as ``launch.cnn_epilogue_residual``), bit for bit ``BatchNorm.forward``,
@@ -33,7 +41,8 @@ as ``launch.cnn_epilogue_residual``), bit for bit ``BatchNorm.forward``,
 convs give 2 and 1 channels, boards of C H W floats that the kernel does not
 take at odd board sizes, and at 400 11x11 boards a head's activation is
 under 0.4 MB, against 49.6 MB for a tower layer's.  With grad on, in
-training, on the CPU and in float64 every layer runs the eager chain.
+training, on the CPU and in float64 every layer runs the eager chain, each
+conv ``F.conv2d``.
 
 Spans (``utils/profiling``, each with the device clock): ``forward.conv``
 around each 3x3 conv (39 a forward at 19 blocks), ``forward.norm`` around
@@ -60,13 +69,14 @@ from hex_gym_env_tpu_torch.models.mlp import (
     _dense,
     assign,
 )
-from hex_gym_env_tpu_torch.ops import cnn_epilogue
+from hex_gym_env_tpu_torch.ops import cnn_epilogue, winograd
 from hex_gym_env_tpu_torch.utils import profiling
 
 
 class ConvBn(nn.Module):
     """A square conv without a bias, orthogonal with gain sqrt(2) (with
-    ``init`` off a ``BareConv2d``), SAME padding, and its ``BatchNorm``."""
+    ``init`` off a ``BareConv2d``), SAME padding, and its ``BatchNorm``;
+    ``image``, the conv's Winograd filter image where ``bind`` built one."""
 
     def __init__(self, cin: int, cout: int, kernel: int, generator, init: bool = True):
         super().__init__()
@@ -76,6 +86,7 @@ class ConvBn(nn.Module):
             with torch.no_grad():
                 nn.init.orthogonal_(self.conv.weight, gain=ORTHO_HIDDEN_GAIN, generator=generator)
         self.bn = BatchNorm(cout)
+        self.image: winograd.FilterImage | None = None
 
 
 class ResidualBlock(nn.Module):
@@ -149,12 +160,18 @@ class ResNetPolicy(nn.Module):
     @staticmethod
     def _layer(name: str, layer: ConvBn, x, fused: bool, train: bool, new_stats: dict,
                skip=None):
-        """A 3x3 layer: the conv, then BatchNorm, the ``skip`` where given,
-        and the ReLU: one epilogue launch where ``fused``, else the eager
-        chain (which records the new statistics under ``train``)."""
+        """A 3x3 layer: the conv (the Winograd kernels where ``fused`` and the
+        layer holds a current image, else ``F.conv2d``), then BatchNorm, the
+        ``skip`` where given, and the ReLU: one epilogue launch where
+        ``fused``, else the eager chain (which records the new statistics
+        under ``train``)."""
         device = x.device
         with profiling.span("forward.conv", device=device):
-            y = F.conv2d(x, layer.conv.weight, None, padding=1)
+            image = layer.image if fused else None
+            if image is not None and image.current(layer.conv.weight):
+                y = winograd.conv(x, image.u)
+            else:
+                y = F.conv2d(x, layer.conv.weight, None, padding=1)
         with profiling.span("forward.norm", device=device):
             bn = layer.bn
             if fused:
@@ -181,5 +198,11 @@ class ResNetPolicy(nn.Module):
 
     def bind(self, params: Mapping[str, torch.Tensor]) -> None:
         """Take ``params`` (a state dict, BatchNorm's statistics included)
-        as the module's own with no copy (``models/mlp.assign``)."""
+        as the module's own with no copy (``models/mlp.assign``), then give
+        each 3x3 conv that ``winograd.takes`` its filter image, and every
+        other none."""
         assign(self, params)
+        for layer in [self.conv_in] + [h for block in self.blocks for h in (block.a, block.b)]:
+            weight = layer.conv.weight
+            layer.image = (winograd.FilterImage.of(weight) if winograd.takes(weight, self.board)
+                           else None)

@@ -2,9 +2,10 @@
 
 The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4, the
 random-legal rollout K7, the match's policy forward and the conv
-forwards' epilogue) and
+forwards' epilogue),
 ``csrc/learner_kernels.cu`` (the learner's K5-K6), with the shared device
-code in ``csrc/hex_common.cuh``, behind a plain C interface.  On first use
+code in ``csrc/hex_common.cuh``, and ``csrc/winograd_kernels.cu`` (the
+residual tower's Winograd conv), behind a plain C interface.  On first use
 each ``.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once
 in parallel, and linked into one shared library under ``_build/`` beside
 this package (listed in ``.gitignore``), keyed by a hash of the sources, and
@@ -39,7 +40,7 @@ from hex_gym_env_tpu_torch.utils import profiling
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-UNITS = ("hex_kernels.cu", "learner_kernels.cu")  # compiled one nvcc each
+UNITS = ("hex_kernels.cu", "learner_kernels.cu", "winograd_kernels.cu")  # compiled one nvcc each
 SOURCES = UNITS + ("hex_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,7 +51,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 KERNELS = (
     "k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
     "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout", "mlp_forward", "mlp_image",
-    "cnn_epilogue", "cnn_epilogue_residual",
+    "cnn_epilogue", "cnn_epilogue_residual", "winograd_conv",
 )
 _COUNTER = {name: f"launch.{name}" for name in KERNELS}
 
@@ -116,6 +117,7 @@ _ARGTYPES = {
     "hex_mlp_forward": [P, I, I, I, I, I, P, P, P, I, P],  # image, dims, x, logits, value, B
     "hex_mlp_forward_plan": [I] * 5 + [P],  # launches nothing: no stream
     "hex_cnn_epilogue": [P] * 7 + [I, I, I, I, P],  # y, 4 vectors, skip, out; B, C, HW, hwc
+    "hex_winograd_conv": [P] * 5 + [I, I, I, P],  # x, image, V, M, y; B, C, n
 }
 
 _lock = threading.Lock()

@@ -13,7 +13,8 @@ registered smaller where a test plays it (16 filters, 2 blocks at 5x5).
 
 On the card (the ``chip`` marker; run there with ``python -m pytest
 tests/test_torch_resnet.py -m chip --noconftest``): the residual launch
-against its twin bit for bit, and the forward with and without the kernel.
+against its twin bit for bit, and the forward with and without the kernel
+(the convs held on one path), and with the Winograd conv.
 """
 
 import time
@@ -461,8 +462,9 @@ def test_the_cell_finds_its_files_and_reports_its_metrics(monkeypatch):
                          "h2d_bytes.match", "ply_us.match", "load_ms.match",
                          "forward_device_us.match", "norm_device_us.match",
                          "forward_flop_pct.match", "residual_kernel_pct.match",
-                         "residual_roofline_pct.match"}
-    for name in ("residual_kernel_pct.match", "residual_roofline_pct.match"):
+                         "residual_roofline_pct.match", "conv_kernel_pct.match"}
+    for name in ("residual_kernel_pct.match", "residual_roofline_pct.match",
+                 "conv_kernel_pct.match"):
         assert harness.entry(man["per_layer"], name, "metric")["workloads"] == [CELL]
     for trace in ("0", "1"):
         args = run.parse(["--workload", CELL, "--seed", str(2 ** 31 + 1), "--seconds", "1",
@@ -491,6 +493,24 @@ def test_residual_kernel_pct_reads_the_share_of_blocks_through_the_kernel(monkey
     assert read(match_r) == pytest.approx(100.0 * 59 / 78)
     profiling.count("launch.cnn_epilogue_residual", 19)
     assert read(match_r) == 100.0
+    monkeypatch.delattr(profiling, "counters")
+    assert read(match_r) is None
+
+
+def test_conv_kernel_pct_reads_the_share_of_block_convs_through_the_kernel(monkeypatch):
+    read = reader("conv_kernel_pct.match").read
+    match_r, train_r = harness.Readings(kind="match"), harness.Readings(kind="train")
+    assert read(match_r) is None  # a program that counts no residual blocks
+    profiling.count("residual_blocks", 38)  # two forwards of 19 blocks
+    assert read(match_r) == 0.0  # the kernels never launched: 76 convs on cuDNN
+    profiling.count("launch.winograd_conv", 38)
+    assert read(match_r) == pytest.approx(50.0) and read(train_r) is None
+    profiling.count("launch.winograd_conv", 38)
+    assert read(match_r) == 100.0
+    monkeypatch.setattr(cuda_lib, "KERNELS", tuple(k for k in cuda_lib.KERNELS
+                                                   if k != "winograd_conv"))
+    assert read(match_r) is None  # a program without the kernel
+    monkeypatch.undo()
     monkeypatch.delattr(profiling, "counters")
     assert read(match_r) is None
 
@@ -589,25 +609,42 @@ def test_the_entry_refuses_an_instance_nothing_launches(cuda_device, case):
 @pytest.mark.parametrize("widths,n,B", [({}, 11, 400), (SMALL, 5, 33)])
 def test_the_forward_with_and_without_the_kernel_is_bit_for_bit(cuda_device, driver, widths,
                                                                   n, B):
-    """The card's inference forward through the kernel, and on the eager
-    chain by the grad rule: equal logits and values; 1 + blocks plain
-    launches and blocks residual launches a forward, none on the eager."""
+    """The card's inference forward through the epilogue kernel, and on the
+    eager chain by the grad rule, with every conv held on ``F.conv2d`` (the
+    filter images dropped): equal logits and values; 1 + blocks plain
+    launches and blocks residual launches a forward, none on the eager.
+    With the images (the tower's convs at 256 filters through the Winograd
+    kernels, 2 x blocks launches; none at 16 filters) the logits stay within
+    the cell's ``logit_gap`` limit (1e-3) of the eager forward's."""
     widths = {**{"filters": 256, "blocks": 19, "value_hidden": 256}, **widths}
     m = work_resnet.ResNet("ResNet", n, widths["filters"], widths["blocks"],
                            widths["value_hidden"])
     params, _ = driver.make(m, 5, cuda_device, 2.0, 0.1, driver.match.AGENT_BN_STD)
     model = ResNetPolicy(n * n, init=False, **widths).to(cuda_device)
     model.bind(params)
+    layers = [model.conv_in] + [h for b in model.blocks for h in (b.a, b.b)]
+    images = [layer.image for layer in layers]
+    for layer in layers:
+        layer.image = None
     x = boards(n, B, 3).to(cuda_device)
     with torch.no_grad():
         fused = model(x)
     blocks = widths["blocks"]
     assert cuda_lib.launches["cnn_epilogue"] == 1 + blocks
     assert cuda_lib.launches["cnn_epilogue_residual"] == blocks
+    assert cuda_lib.launches["winograd_conv"] == 0
+    for layer, image in zip(layers, images):
+        layer.image = image
+    with torch.no_grad():
+        through = model(x)
+    convs = 2 * blocks if widths["filters"] == 256 else 0
+    assert cuda_lib.launches["winograd_conv"] == convs
     model.requires_grad_(True)
     eager = model(x)
     torch.cuda.synchronize()
-    assert cuda_lib.launches["cnn_epilogue_residual"] == blocks
+    assert cuda_lib.launches["cnn_epilogue_residual"] == 2 * blocks
     for f, e in zip(fused, eager):
         assert torch.equal(f, e.detach())
+    for w, e in zip(through, eager):
+        assert float((w - e.detach()).abs().max()) < 1e-3
     assert float(fused[0].abs().max()) > 0.5

@@ -175,6 +175,14 @@ only builds the kernels and runs the ``[resnet conv]`` phase: the residual
 tower's Winograd conv against float64 ``F.conv2d`` and its plain version at
 the AZ-ResNet match's shape, its times beside its bounds and cuDNN's conv,
 and the cell's agent's forward with the tower on it and on cuDNN.
+
+    python3 chip_smoke.py --nbt-only
+
+only builds the kernels and runs the ``[nbt]`` phase: at the KataGo-NBT
+match's shape, the widened Winograd conv (192 -> 192, 128 -> 192) and the
+pre-activation epilogue against float64 and their twins, their times
+beside their bounds, and the cell's agent's forward with the kernels and
+on the eager chain.
 """
 
 from __future__ import annotations
@@ -1545,9 +1553,10 @@ RES_FORWARD_TOL = 1e-4
 
 @contextlib.contextmanager
 def images_dropped(model):
-    """Inside: every 3x3 conv of the AZ-ResNet ``model`` without its filter
-    image, so it runs ``F.conv2d`` as the eager chain does; restored after."""
-    layers = [model.conv_in] + [h for b in model.blocks for h in (b.a, b.b)]
+    """Inside: every 3x3 conv of the AZ-ResNet or KataGo-NBT ``model``
+    without its filter image, so it runs ``F.conv2d`` as the eager chain
+    does; restored after."""
+    layers = model.convs3x3()
     images = [layer.image for layer in layers]
     try:
         for layer in layers:
@@ -1922,6 +1931,137 @@ def conv_phase(dev) -> dict:
             "library_device_ms": lib_busy / 10 / 1e3, "image_ms": image_ms,
             "forward_ms": {"winograd": fwd_ms, "cudnn": cudnn_ms}, "logit_gap": gap,
             "memory_peak_bytes": peak}
+
+
+# the KataGo tower's match: 400 11x11 boards, the widths of b18c384nbt
+NBT_N, NBT_B = 11, 400
+NBT_WIDTHS = {"trunk": 384, "mid": 192, "gpool": 64, "blocks": 18, "gpool_every": 3, "p1": 48,
+              "g1": 48, "v1": 96, "v2": 128}
+# The KataGo-NBT forward with its 72 3x3 convs on the Winograd kernels
+# against the eager forward (cuDNN's convs), as a share of the eager
+# forward's largest logit: RES_FORWARD_TOL's reasoning, at twice its depth
+# in convs.
+NBT_FORWARD_TOL = 2e-4
+
+
+def nbt_phase(dev) -> dict:
+    """``[nbt]``: KataGo's nested-bottleneck tower (``models/nbt.py``) at its
+    match's shape (11x11, 400 boards, the cell's agent drawn and bound as a
+    match binds it).  The widened Winograd conv at 192 -> 192 and 128 ->
+    192 (the 64-column product) against float64 ``F.conv2d`` and its plain
+    version, with its call and device times beside its bound (the products
+    it runs) and cuDNN's conv; the pre-activation epilogue
+    (``cnn_epilogue.preact``) bit for bit its twin at 384 channels with the
+    skip, 192 without and the pooled 128-channel slice with the board bias,
+    its times beside its bound by bytes and the eager chain it displaces;
+    and the agent's forward with the kernels and on the eager chain: bit
+    for bit with the convs held on cuDNN, within ``NBT_FORWARD_TOL`` as it
+    runs, its times, device ops and memory peak.  Returns the kernel
+    table's row, its launches those counted in one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark import harness, work_nbt
+    from hex_gym_env_tpu_torch.models import cnn, nbt
+    from hex_gym_env_tpu_torch.ops import cnn_epilogue, cuda_lib, winograd
+
+    n, B = NBT_N, NBT_B
+    drv = harness.load_module(harness.driver_file("match_nbt"), "smoke_nbt")
+    m = work_nbt.Nbt("NBT", n, **NBT_WIDTHS)
+    params, _ = drv.make(m, 2025, dev, 2.0, 0.1, drv.match.AGENT_BN_STD)
+    model = nbt.NbtPolicy(n * n, init=False, **NBT_WIDTHS).to(dev)
+    model.bind(params)
+    g = torch.Generator().manual_seed(2025)
+    boards = torch.randint(-1, 2, (B, n, n), generator=g).to(dev, torch.float32)
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    convs = {}
+    with torch.no_grad(), cnn.full_float32():
+        for label, layer in (("192 -> 192", model.blocks[0].inner[0].a),
+                             ("128 -> 192", model.blocks[2].inner[0].b)):
+            w, u = layer.conv.weight.detach(), layer.image.u
+            cin, cout = w.shape[1], w.shape[0]
+            x = torch.relu(torch.randn((B, cin, n, n), generator=g)).to(dev)
+            cuda_lib.reset_launches()
+            y = winograd.conv(x, u)
+            twin = winograd.conv_twin(x, u)
+            want = F.conv2d(x.double(), w.double(), padding=1)
+            torch.cuda.synchronize()
+            if cuda_lib.launches["winograd_conv"] != 1 or y.shape != (B, cout, n, n):
+                fail(f"[nbt] a {label} call launched {dict(cuda_lib.launches)}, {y.shape}")
+            scale, rms_scale = float(want.abs().max()), float(want.pow(2).mean().sqrt())
+            err = y.double() - want
+            rms, worst = float(err.pow(2).mean().sqrt()) / rms_scale, float(err.abs().max()) / scale
+            kernel_twin = float((y - twin).abs().max()) / scale
+            if not (rms < CONV_RMS_TOL and worst < CONV_MAX_TOL and kernel_twin < 2 * CONV_MAX_TOL):
+                fail(f"[nbt] the {label} kernels are not the conv: {rms}, {worst}, {kernel_twin}")
+            # the Winograd products the conv needs: its tiles, not the rows
+            # to which the product pads them
+            flops = 2.0 * winograd.POINTS * work_nbt.tiles(B, n) * cin * cout
+            nbytes = 4 * B * (cin + cout) * n * n + 4 * winograd.POINTS * cin * cout
+            bound, by = bound_ms(nbytes, flops)
+            call = cuda_ms(lambda: winograd.conv(x, u), 50)
+            dev_ms = device_ms(lambda: winograd.conv(x, u), WINO_KERNELS, 20)
+            parts = {k: device_ms(lambda: winograd.conv(x, u), [k], 20) for k in WINO_KERNELS}
+            lib_ms = cuda_ms(lambda: F.conv2d(x, w, None, padding=1), 50)
+            convs[label] = {"call": call, "device": dev_ms, "parts": parts, "bound": bound,
+                            "library": lib_ms, "rms_err": rms, "max_err": worst}
+            print(f"[nbt] conv {label}, {n}x{n}, {B} boards: against float64 F.conv2d {rms:.3g} "
+                  f"of the RMS, {worst:.3g} of the largest, the plain version {kernel_twin:.3g}; "
+                  f"call {call:.5f} ms, device {dev_ms:.5f} ms (" + ", ".join(
+                      f"{k} {v:.5f}" for k, v in parts.items())
+                  + f"); bound {bound:.5f} ms ({by}: {flops / 1e9:.3f} GFLOP needed), "
+                  f"{100 * bound / dev_ms:.1f}% of it, product "
+                  f"{flops / parts['wino_gemm_kernel'] / 1e9:.2f} TFLOP/s; cuDNN's F.conv2d "
+                  f"{lib_ms:.5f} ms")
+        epis = {}
+        for label, C, skip, board in (("384 with the skip", 384, True, False),
+                                      ("192 without", 192, False, False),
+                                      ("pooled 128 with the board bias", 128, False, True)):
+            bn = model.blocks[0].pre.bn if C == 384 else (
+                model.blocks[2].inner[0].b.bn if board else model.blocks[0].inner[0].a.bn)
+            args = (bn.mean, bn.mul(bn.var), bn.bias)
+            wide = torch.randn((B, 192 if board else C, n, n), generator=g).to(dev)
+            y = wide[:, :C]
+            sk = torch.randn((B, C, n, n), generator=g).to(dev) if skip else None
+            bb = torch.randn((B, C), generator=g).to(dev) if board else None
+            want_s, want_a = cnn_epilogue.preact_twin(y, sk, *args, bb)
+            work_y = wide.clone()[:, :C]  # the slice of a 192-channel output where pooled
+            got_s, got_a = cnn_epilogue.preact(work_y, sk, *args, bb)
+            torch.cuda.synchronize()
+            if not (torch.equal(bits(got_s), bits(want_s)) and torch.equal(bits(got_a),
+                                                                           bits(want_a))):
+                fail(f"[nbt] the preact launch ({label}) is not its twin bit for bit")
+
+            def eager_chain():
+                s_ = work_y if sk is None else work_y + sk
+                t_ = s_ if bb is None else s_ + bb[:, :, None, None]
+                return s_, torch.relu(bn(t_, False)[0])
+
+            epis[label] = epilogue_times(
+                "nbt", f"preact {label}", (n, B, C),
+                lambda: cnn_epilogue.preact(work_y, sk, *args, bb),
+                lambda: cnn_epilogue.preact_twin(work_y, sk, *args, bb), eager_chain,
+                work_nbt.preact_bytes(B, C, n, n, skip, board))
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        forwards = forward_paths(
+            "nbt", nbt.NbtPolicy, lambda: model(boards),
+            {"winograd_conv": len(work_nbt.convs3x3(m)),
+             "cnn_epilogue_preact": len(work_nbt.preacts(m))},
+            10, 3, B * work_nbt.policy_flops(m), lambda: images_dropped(model),
+            NBT_FORWARD_TOL)
+        peak = torch.cuda.max_memory_allocated()
+    print(f"[nbt] memory peak {peak} bytes over the forwards (both sides' agent held: one)")
+    t = epis["384 with the skip"]
+    c = convs["192 -> 192"]
+    return {"name": "cnn_epilogue_preact + winograd_conv (64-column)", "route": "cuda",
+            "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu, winograd_kernels.cu",
+            "replaces": None, "launches": {"cnn_epilogue_preact": len(work_nbt.preacts(m)),
+                                           "winograd_conv": len(work_nbt.convs3x3(m))},
+            "launches_per": "forward", "preact": epis, "conv": convs,
+            "ms": t["call"], "device_ms": t["device"], "bound_ms": t["bound"],
+            "conv_ms": c["call"], "conv_device_ms": c["device"], "conv_bound_ms": c["bound"],
+            "memory_peak_bytes": peak, **forwards}
 
 
 def compat_phase(dev) -> dict:
@@ -3321,7 +3461,8 @@ def main(dev) -> None:
     epilogue_row = epilogue_phase(dev)
     residual_row = residual_phase(dev)
     conv_row = conv_phase(dev)
-    print(f"[match + compat + mlp forward + cnn and resnet epilogues + resnet conv] phases "
+    nbt_row = nbt_phase(dev)
+    print(f"[match + compat + mlp forward + cnn and resnet epilogues + resnet conv + nbt] phases "
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 13. the training entry points, data-parallel training, the scripts -------------
@@ -3373,6 +3514,7 @@ def main(dev) -> None:
     rows.append(epilogue_row)
     rows.append(residual_row)
     rows.append(conv_row)
+    rows.append(nbt_row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3431,6 +3573,7 @@ MODES = {
                                        ("resnet epilogue", residual_phase,
                                         "cnn_epilogue_residual"))),
     "--conv-only": Mode((), True, (("resnet conv", conv_phase, "winograd_conv"),)),
+    "--nbt-only": Mode((), True, (("nbt", nbt_phase, "nbt"),)),
     "--split-only": Mode(("LABEL",), True,
                          (("split {}", lambda dev, label: phase_splits(label), None),)),
     "--env-kernels": Mode(("LABEL", "ROOT"), False,

@@ -1372,6 +1372,19 @@ cudaError_t fwd_plan(const Mlp& m, int B, int* plan) {
 // skip layers without it; so the CNN's instances compute exactly what they
 // did.  Bound with a skip: y and the skip read once and the
 // output written once, 148.7 MB at B = 400, 11x11, C = 256, 44.4 us.
+// The pre-activation instances (kPreact, models/nbt.py, the KataGo tower,
+// whose residual stream is never normalized: each conv is BatchNorm ->
+// ReLU -> conv) take the conv's raw output y, the stream's skip where
+// given and a (B, C) board bias where given, and write two outputs:
+//   s = y + skip                          (over y; only with a skip)
+//   a = relu((((s + board_bias[b][c]) - mean[c]) * mul[c]) + bn_bias[c])
+// into a new (B, C, HW) buffer, a the next conv's input and s the stream
+// kept for the next skip; bit for bit the eager chain's add, BatchNorm and
+// ReLU.  y may be a channel slice of a wider tensor (its boards ys floats
+// apart, the tower's pooled conv split into its 128 and 64 channels);
+// skip and a are contiguous.  Three instances: (kSkip, kBoard) = (0, 0),
+// (1, 0), (0, 1).  Bound: y read, a written, and with a skip the skip read
+// and s written: 297.4 MB at B = 400, 11x11, C = 384, 88.8 us.
 // Bound: bytes, the activation read once and written once: 169.9 MB at
 // B = 4,096, 9x9, C = 64, 50.7 us at 3.35 TB/s.  Design:
 //   - the four (C,) vectors go into shared memory once a CTA, one float4 a
@@ -1407,9 +1420,12 @@ struct EpiArgs {
   const float* mul;
   const float* bn_bias;
   const float* skip;  // (B, C, HW), added before the ReLU; null where there is none
-  float* out;  // NCHW: y itself; HWC: (B, HW, C)
+  float* out;  // NCHW: y itself; HWC: (B, HW, C); pre-activation: y, where s is written
   int B, C, HW;
   int nb;  // NCHW: board lanes (a thread walks boards b, b + nb, ...); HWC: P
+  const float* board_bias;  // pre-activation: (B, C), added before BatchNorm; or null
+  float* act;  // pre-activation: a, (B, C, HW)
+  int ys;  // pre-activation: floats from one board of y (and s) to the next
 };
 
 // one element through the eager chain's ops and ReLU, each rounded
@@ -1430,15 +1446,84 @@ __device__ __forceinline__ float4 epi(float4 v, const float4* p, float4 s) {
                      epi<kBias, kSkip>(v.z, p[2], s.z), epi<kBias, kSkip>(v.w, p[3], s.w));
 }
 
-template <bool kHwc, bool kBias, bool kSkip>
+// the pre-activation instance's a of one element of s: the board bias
+// (where given), then the epilogue without a skip
+template <bool kBoard>
+__device__ __forceinline__ float4 pre(float4 s, const float4* p, float4 bb) {
+  if constexpr (kBoard)
+    s = make_float4(__fadd_rn(s.x, bb.x), __fadd_rn(s.y, bb.y), __fadd_rn(s.z, bb.z),
+                    __fadd_rn(s.w, bb.w));
+  const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  return epi<false, false>(s, p, none);
+}
+
+template <bool kHwc, bool kBias, bool kSkip, bool kPreact = false, bool kBoard = false>
 __global__ void __launch_bounds__(kEpiThreads) cnn_epilogue_kernel(EpiArgs a) {
   static_assert(!(kHwc && kSkip), "the (H, W, C) launch takes no skip");
+  static_assert(!kPreact || (!kHwc && !kBias), "the pre-activation launch: NCHW, no conv bias");
+  static_assert(kPreact || !kBoard, "a board bias only in the pre-activation launch");
   extern __shared__ __align__(16) float4 smem_epi[];  // (C,) parameters, then the HWC tile
   for (int c = threadIdx.x; c < a.C; c += blockDim.x)
     smem_epi[c] = make_float4(kBias ? a.conv_bias[c] : 0.0f, a.mean[c], a.mul[c], a.bn_bias[c]);
   __syncthreads();
   const long long board = static_cast<long long>(a.C) * a.HW;
-  if constexpr (!kHwc) {
+  if constexpr (kPreact) {
+    // as the NCHW launch: a thread keeps one 16-byte position q of a board
+    // and walks the boards, four in flight; y's boards lie ys floats apart
+    const int Q = static_cast<int>(board / 4);
+    const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (lane >= static_cast<long long>(Q) * a.nb) return;
+    const int q = static_cast<int>(lane % Q);
+    float4 p[4];
+    int ch[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ch[j] = (4 * q + j) / a.HW;
+      p[j] = smem_epi[ch[j]];
+    }
+    const long long Qy = a.ys / 4;
+    const float4* src = reinterpret_cast<const float4*>(a.y) + q;
+    float4* sdst = reinterpret_cast<float4*>(a.out) + q;
+    const float4* skp = reinterpret_cast<const float4*>(a.skip) + q;
+    float4* adst = reinterpret_cast<float4*>(a.act) + q;
+    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    auto board_bias = [&](long long b) {
+      if constexpr (!kBoard) return none;
+      const float* row = a.board_bias + b * a.C;
+      return make_float4(row[ch[0]], row[ch[1]], row[ch[2]], row[ch[3]]);
+    };
+    auto add = [](float4 v, float4 k) {
+      return make_float4(__fadd_rn(v.x, k.x), __fadd_rn(v.y, k.y), __fadd_rn(v.z, k.z),
+                         __fadd_rn(v.w, k.w));
+    };
+    const long long nb = a.nb;
+    long long b = lane / Q;
+    for (; b + 3 * nb < a.B; b += 4 * nb) {
+      float4 v[4], k[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[i] = src[(b + i * nb) * Qy];
+        k[i] = kSkip ? skp[(b + i * nb) * Q] : none;
+        bb[i] = board_bias(b + i * nb);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kSkip) {
+          v[i] = add(v[i], k[i]);
+          sdst[(b + i * nb) * Qy] = v[i];
+        }
+        adst[(b + i * nb) * Q] = pre<kBoard>(v[i], p, bb[i]);
+      }
+    }
+    for (; b < a.B; b += nb) {
+      float4 v = src[b * Qy];
+      if constexpr (kSkip) {
+        v = add(v, skp[b * Q]);
+        sdst[b * Qy] = v;
+      }
+      adst[b * Q] = pre<kBoard>(v, p, board_bias(b));
+    }
+  } else if constexpr (!kHwc) {
     const int Q = static_cast<int>(board / 4);  // 16-byte positions a board
     const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (lane >= static_cast<long long>(Q) * a.nb) return;
@@ -1537,12 +1622,13 @@ cudaError_t epi_plan(const void* fn, bool hwc, int dev, int B, int C, int HW, in
   return cudaSuccess;
 }
 
-// one launch of the instance (kHwc, kBias, kSkip) of cnn_epilogue_kernel.
-// The instance keeps its last plan, so a launch with the same shapes on the
-// same device asks the runtime nothing more.
-template <bool kHwc, bool kBias, bool kSkip>
+// one launch of the instance (kHwc, kBias, kSkip, kPreact, kBoard) of
+// cnn_epilogue_kernel.  The instance keeps its last plan, so a launch with
+// the same shapes on the same device asks the runtime nothing more.
+template <bool kHwc, bool kBias, bool kSkip, bool kPreact = false, bool kBoard = false>
 int epi_launch(EpiArgs a, cudaStream_t st) {
-  const void* fn = reinterpret_cast<const void*>(cnn_epilogue_kernel<kHwc, kBias, kSkip>);
+  const void* fn =
+      reinterpret_cast<const void*>(cnn_epilogue_kernel<kHwc, kBias, kSkip, kPreact, kBoard>);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1561,7 +1647,7 @@ int epi_launch(EpiArgs a, cudaStream_t st) {
     std::copy(last + 4, last + 7, plan);
   }
   a.nb = plan[2];
-  cnn_epilogue_kernel<kHwc, kBias, kSkip><<<plan[0], kEpiThreads, plan[1], st>>>(a);
+  cnn_epilogue_kernel<kHwc, kBias, kSkip, kPreact, kBoard><<<plan[0], kEpiThreads, plan[1], st>>>(a);
   return finish_launch();
 }
 }  // namespace
@@ -1887,6 +1973,34 @@ int hex_cnn_epilogue(const void* y, const void* conv_bias, const void* mean, con
   if (skip != nullptr) return epi_launch<false, false, true>(a, st);
   return conv_bias != nullptr ? epi_launch<false, true, false>(a, st)
                               : epi_launch<false, false, false>(a, st);
+}
+
+// The pre-activation epilogue (cnn_epilogue_kernel's kPreact instances)
+// over the conv's output y (B, C, HW) without a bias, its boards ys floats
+// apart: with a skip (B, C, HW), s = y + skip written over y; a =
+// relu(bn(s + board_bias)) into act (B, C, HW), board_bias (B, C) or null.
+// mean, mul and bn_bias are (C,) each.  y, skip and act 16-byte aligned,
+// C HW and ys multiples of 4, ys at least C HW, and a board bias only
+// without a skip, else cudaErrorInvalidValue.
+int hex_cnn_preact(const void* y, const void* skip, const void* mean, const void* mul,
+                   const void* bn_bias, const void* board_bias, void* act, int B, int C, int HW,
+                   int ys, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(act) |
+       reinterpret_cast<uintptr_t>(skip)) % 16 != 0 ||
+      C < 1 || HW < 1 || static_cast<long long>(C) * HW % 4 != 0 || ys % 4 != 0 ||
+      ys < static_cast<long long>(C) * HW || (skip != nullptr && board_bias != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  EpiArgs a{static_cast<const float*>(y),       nullptr,
+            static_cast<const float*>(mean),    static_cast<const float*>(mul),
+            static_cast<const float*>(bn_bias), static_cast<const float*>(skip),
+            const_cast<float*>(static_cast<const float*>(y)), B, C, HW, 0};
+  a.board_bias = static_cast<const float*>(board_bias);
+  a.act = static_cast<float*>(act);
+  a.ys = ys;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (skip != nullptr) return epi_launch<false, false, true, true, false>(a, st);
+  return board_bias != nullptr ? epi_launch<false, false, false, true, true>(a, st)
+                               : epi_launch<false, false, false, true, false>(a, st);
 }
 
 }  // extern "C"

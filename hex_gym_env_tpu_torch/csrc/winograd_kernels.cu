@@ -1,18 +1,20 @@
-// The residual tower's 3x3 conv as a float32 Winograd F(4x4, 3x3) conv
-// (C entry hex_winograd_conv: three kernels, wino_input_kernel,
+// The 3x3 convs of the residual towers as a float32 Winograd F(4x4, 3x3)
+// conv (C entry hex_winograd_conv: three kernels, wino_input_kernel,
 // wino_gemm_kernel and wino_output_kernel, on the caller's stream), for
 // Hopper (sm_90a) behind a plain C interface (ops/cuda_lib.py builds this
 // file with the others into one library; ops/winograd.py is its wrapper and
 // holds its plain PyTorch twin).
 //
 // Replaces no TPU kernel: the JAX package has no residual tower, and its
-// convs are XLA's.  Added because cuDNN, asked for the tower's 256 -> 256
-// 3x3 convs at 400 11x11 boards in full float32, runs an FFT algorithm: it
-// pads the board to 16x16 (144 complex frequencies, 576 real multiplies a
-// board, input and output channel), and it flips and transforms the same
-// bound filters again on every call.  Here the filters are transformed once
-// a bind (U = G g G^T, in float64 by the wrapper, rounded once to float32),
-// and a conv is:
+// convs are XLA's.  Added because cuDNN, asked for the AZ-ResNet tower's
+// 256 -> 256 3x3 convs at 400 11x11 boards in full float32, runs an FFT
+// algorithm: it pads the board to 16x16 (144 complex frequencies, 576 real
+// multiplies a board, input and output channel), and it flips and
+// transforms the same bound filters again on every call.  Here the filters
+// are transformed once a bind (U = G g G^T, in float64 by the wrapper,
+// rounded once to float32), and a conv of C input and K output channels
+// (each a multiple of 64; the KataGo tower's are 192 -> 192 and 128 -> 192)
+// is:
 //   1. wino_input_kernel: the board x (B, C, n, n) NCHW, cut into
 //      ceil(n/4)^2 tiles of 4x4 outputs, each tile's 6x6 input patch (pad
 //      1, zero outside the board) to V = B^T d B, written as
@@ -39,21 +41,28 @@
 //     planes (each board's cg n^2 floats are contiguous) in shared memory,
 //     one thread a tile, and writes each (xi, c) row as runs of 32
 //     consecutive p that start on 128 bytes, so a warp stores one line;
-//   - product: 128 x 128 CTA tiles, 256 threads of 8 x 8 accumulators
-//     (a warp 64 x 32, a thread rows {4l, 4l + 32} + 0..3 and columns
-//     {4l', 4l' + 16} + 0..3 of it, so each shared-memory read is a
-//     broadcast float4), a depth step of kBK = 16 from a ring of kStages
-//     = 3 stages filled by 16-byte cp.async; V^T's rows and U's rows are
-//     both contiguous along the tile, so neither is transposed on the way;
-//     CTAs run point by point (xi-major), so a point's V (3.7 MB) and U
-//     (256 KB) are read from L2 by all its tiles.  It runs at ~65% of the
-//     float32 peak at 1,980 MHz; 8 x 16 accumulators, a depth step of 8
-//     or 32 and 2 or 4 stages read within 2% of it;
+//   - product: 128 x kBN CTA tiles of 2 kBN threads with 8 x 8
+//     accumulators each (a warp 64 x 32, a thread rows {4l, 4l + 32} +
+//     0..3 and columns {4l', 4l' + 16} + 0..3 of it, so each shared-memory
+//     read is a broadcast float4), a depth step of kBK = 16 from a ring of
+//     kStages = 3 stages filled by 16-byte cp.async; V^T's rows and U's
+//     rows are both contiguous along the tile, so neither is transposed on
+//     the way; CTAs run point by point (xi-major), so a point's V (3.7 MB)
+//     and U (256 KB) are read from L2 by all its tiles.  Two template
+//     instances of the product: kBN = 128 (256 threads) where K is a
+//     multiple of 128, the AZ-ResNet's 256 -> 256 tiling, unchanged; kBN =
+//     64 (128 threads, the same warp and thread tiles, half the warps
+//     across) for every other K, a multiple of 64 (192: three column tiles
+//     of 64, not a 128 and a 64 in two launches).  Each output's sum runs
+//     over the depth in the same order in both, so the arithmetic is the
+//     same.  The 128 instance runs at ~65% of the float32 peak at 1,980
+//     MHz; 8 x 16 accumulators, a depth step of 8 or 32 and 2 or 4 stages
+//     read within 2% of it;
 //   - output: a CTA takes one board x kKC output channels, reads M[p][xi]
 //     as runs of kKC channels, builds the kKC planes in shared memory and
 //     writes them out as kKC n^2 contiguous floats (float4 stores).
-// Refuses (cudaErrorInvalidValue) a board above kMaxBoard, C not a
-// multiple of 128, or a pointer not 16-byte aligned.
+// Refuses (cudaErrorInvalidValue) a board above kMaxBoard, C or K not a
+// multiple of 64, or a pointer not 16-byte aligned.
 
 #include <cuda_runtime.h>
 
@@ -66,8 +75,14 @@ namespace {
 constexpr int kPoints = 36;  // 6 x 6 transformed points a tile
 constexpr int kMaxBoard = 19;  // the output CTA's kKC planes in 48 KB of shared memory
 constexpr int kKC = 32;  // output transform: output channels a CTA
-constexpr int kBM = 128, kBN = 128, kBK = 16, kStages = 3, kGemmThreads = 256;
-constexpr int kGemmSmem = kStages * kBK * (kBM + kBN) * 4;  // 48 KB: no opt-in needed
+constexpr int kBM = 128, kBK = 16, kStages = 3;
+constexpr int kChannels = 64;  // C and K a multiple of the narrow product tile
+// the product's threads and shared bytes for a tile of kBN columns (48 KB
+// at 128: no opt-in needed)
+template <int kBN> __host__ __device__ constexpr int gemm_threads() { return 2 * kBN; }
+template <int kBN> __host__ __device__ constexpr int gemm_smem() {
+  return kStages * kBK * (kBM + kBN) * 4;
+}
 
 // v = B^T d along one axis
 __device__ __forceinline__ void input_1d(const float (&d)[6], float (&v)[6]) {
@@ -100,11 +115,11 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 struct WinoArgs {
   const float* x;  // (B, C, n, n)
-  const float* u;  // (36, C, K), K = C
+  const float* u;  // (36, C, K)
   float* v;  // (C, 36, Ppad)
   float* m;  // (Ppad, 36, K)
   float* y;  // (B, K, n, n)
-  int B, C, n, tn, Ppad;
+  int B, C, K, n, tn, Ppad;
   int nb, cg;  // input transform: boards and channels a CTA
 };
 
@@ -157,11 +172,13 @@ __global__ void __launch_bounds__(1024) wino_input_kernel(WinoArgs a) {
   }
 }
 
-__global__ void __launch_bounds__(kGemmThreads, 2) wino_gemm_kernel(WinoArgs a) {
+template <int kBN>
+__global__ void __launch_bounds__(2 * kBN, 256 / kBN) wino_gemm_kernel(WinoArgs a) {
+  constexpr int kThreads = gemm_threads<kBN>(), kWarpsN = kBN / 32;
   extern __shared__ __align__(16) float smem_gemm[];
   float* As = smem_gemm;  // kStages x kBK x kBM: V^T's rows k, tile columns p
   float* Bs = smem_gemm + kStages * kBK * kBM;  // kStages x kBK x kBN: U's rows k
-  const int C = a.C, K = a.C, Ppad = a.Ppad;
+  const int C = a.C, K = a.K, Ppad = a.Ppad;
   const int tiles_n = K / kBN, per_point = (Ppad / kBM) * tiles_n;
   const int xi = blockIdx.x / per_point, rest = blockIdx.x - xi * per_point;
   const int tm = rest / tiles_n, tn = rest - tm * tiles_n;
@@ -170,16 +187,31 @@ __global__ void __launch_bounds__(kGemmThreads, 2) wino_gemm_kernel(WinoArgs a) 
   const float* Bg = a.u + static_cast<long long>(xi) * C * K + tn * kBN;
   const int tid = threadIdx.x;
   auto load = [&](int stage, int k0) {
+    if constexpr (kBN == kBM) {  // the 128 instance: A's and B's copies in turn
 #pragma unroll
-    for (int i = 0; i < kBK * kBM / 4 / kGemmThreads; ++i) {
-      const int id = tid + i * kGemmThreads, row = id / (kBM / 4), c4 = id % (kBM / 4) * 4;
-      cp_async16(As + (stage * kBK + row) * kBM + c4, A + (k0 + row) * v_row + c4);
-      cp_async16(Bs + (stage * kBK + row) * kBN + c4, Bg + static_cast<long long>(k0 + row) * K + c4);
+      for (int i = 0; i < kBK * kBM / 4 / kThreads; ++i) {
+        const int id = tid + i * kThreads, row = id / (kBM / 4), c4 = id % (kBM / 4) * 4;
+        cp_async16(As + (stage * kBK + row) * kBM + c4, A + (k0 + row) * v_row + c4);
+        cp_async16(Bs + (stage * kBK + row) * kBN + c4,
+                   Bg + static_cast<long long>(k0 + row) * K + c4);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK * kBM / 4 / kThreads; ++i) {
+        const int id = tid + i * kThreads, row = id / (kBM / 4), c4 = id % (kBM / 4) * 4;
+        cp_async16(As + (stage * kBK + row) * kBM + c4, A + (k0 + row) * v_row + c4);
+      }
+#pragma unroll
+      for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
+        const int id = tid + i * kThreads, row = id / (kBN / 4), c4 = id % (kBN / 4) * 4;
+        cp_async16(Bs + (stage * kBK + row) * kBN + c4,
+                   Bg + static_cast<long long>(k0 + row) * K + c4);
+      }
     }
   };
   const int warp = tid >> 5, lane = tid & 31;
-  const int rm = (warp >> 2) * 64 + (lane >> 2) * 4;  // rows rm + 0..3 and rm + 32 + 0..3
-  const int rn = (warp & 3) * 32 + (lane & 3) * 4;  // columns rn + 0..3 and rn + 16 + 0..3
+  const int rm = (warp / kWarpsN) * 64 + (lane >> 2) * 4;  // rows rm + 0..3 and rm + 32 + 0..3
+  const int rn = (warp % kWarpsN) * 32 + (lane & 3) * 4;  // columns rn + 0..3 and rn + 16 + 0..3
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -225,7 +257,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) wino_gemm_kernel(WinoArgs a) 
 
 __global__ void wino_output_kernel(WinoArgs a) {
   extern __shared__ __align__(16) float smem_out[];  // kKC planes of n^2
-  const int n = a.n, nn = n * n, tn = a.tn, T = tn * tn, K = a.C;
+  const int n = a.n, nn = n * n, tn = a.tn, T = tn * tn, K = a.K;
   const int b = blockIdx.x, k0 = blockIdx.y * kKC;
   const int point = K;  // M[p][xi][k]
   for (int it = threadIdx.x; it < T * kKC; it += blockDim.x) {
@@ -266,25 +298,27 @@ int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
 extern "C" {
 
-// One conv of x (B, C, n, n) by the filter image u (36, C, C) into y (B, C,
+// One conv of x (B, C, n, n) by the filter image u (36, C, K) into y (B, K,
 // n, n), all float32 NCHW, through the scratch v (C, 36, Ppad) and m (Ppad,
-// 36, C), Ppad = B ceil(n/4)^2 rounded up to 128 (ops/winograd.py
+// 36, K), Ppad = B ceil(n/4)^2 rounded up to 128 (ops/winograd.py
 // allocates both).  Three launches on stream; returns the first launch's
 // error, else cudaGetLastError() of the last.
 int hex_winograd_conv(const void* x, const void* u, void* v, void* m, void* y, int B, int C,
-                      int n, void* stream) {
+                      int K, int n, void* stream) {
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(u) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(m) |
        reinterpret_cast<uintptr_t>(y)) % 16 != 0 ||
-      B < 1 || C < 128 || C % 128 != 0 || n < 1 || n > kMaxBoard)
+      B < 1 || C < kChannels || C % kChannels != 0 || K < kChannels || K % kChannels != 0 ||
+      n < 1 || n > kMaxBoard)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tn = (n + 3) / 4, T = tn * tn;
   if (static_cast<long long>(B) * T > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
   // input transform: nb boards (nb T a multiple of 32, so each (xi, c) run
-  // of p starts on 128 bytes) x cg channels, about 256 tiles a CTA
+  // of p starts on 128 bytes) x cg channels, about 256 tiles a CTA (cg is 1,
+  // 2, 4 or 8, a divisor of C)
   const int nb = 32 / std::gcd(T, 32), cg = std::max(1, std::min(8, 256 / (nb * T)));
   WinoArgs a{static_cast<const float*>(x), static_cast<const float*>(u), static_cast<float*>(v),
-             static_cast<float*>(m), static_cast<float*>(y), B, C, n, tn,
+             static_cast<float*>(m), static_cast<float*>(y), B, C, K, n, tn,
              round_up(B * T, kBM), nb, cg};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nn = n * n;
@@ -293,10 +327,15 @@ int hex_winograd_conv(const void* x, const void* u, void* v, void* m, void* y, i
   wino_input_kernel<<<in_grid, in_threads, nb * cg * nn * 4, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  wino_gemm_kernel<<<kPoints * (a.Ppad / kBM) * (C / kBN), kGemmThreads, kGemmSmem, st>>>(a);
+  if (K % 128 == 0)
+    wino_gemm_kernel<128><<<kPoints * (a.Ppad / kBM) * (K / 128), gemm_threads<128>(),
+                            gemm_smem<128>(), st>>>(a);
+  else
+    wino_gemm_kernel<64><<<kPoints * (a.Ppad / kBM) * (K / 64), gemm_threads<64>(),
+                           gemm_smem<64>(), st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const int out_threads = std::min(1024, round_up(T * kKC, 32));
-  wino_output_kernel<<<dim3(B, C / kKC), out_threads, kKC * nn * 4, st>>>(a);
+  wino_output_kernel<<<dim3(B, K / kKC), out_threads, kKC * nn * 4, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

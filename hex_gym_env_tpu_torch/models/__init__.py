@@ -8,12 +8,16 @@ Families (``scripts/experiments/*.py`` of the reference):
 - ``CNN``: conv 1->64 + four 64->64 convs with BatchNorm, features 128,
   pi/vf [128, 128], ReLU (``models/cnn.py``)
 
-and one beyond the reference's grid:
+and two beyond the reference's grid, which the rating match plays and the
+trainer has no opponent-bank path for:
 
 - ``AZ-ResNet``: the AlphaZero residual tower, a 3x3 conv block and 19
   residual blocks of 256 filters, its policy and value heads
-  (``models/resnet.py``); the rating match plays it, the trainer has no
-  opponent-bank path for it
+  (``models/resnet.py``)
+- ``KataGo-NBT``: KataGo's b18c384nbt, 18 pre-activation nested
+  bottleneck blocks (384 -> 192, two inner residual blocks of 3x3 convs,
+  192 -> 384) with global pooling in every third, its pooled policy and
+  value heads (``models/nbt.py``)
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from hex_gym_env_tpu_torch.models.cnn import CnnPolicy
 from hex_gym_env_tpu_torch.models.mlp import MlpPolicy
+from hex_gym_env_tpu_torch.models.nbt import NbtPolicy
 from hex_gym_env_tpu_torch.models.resnet import ResNetPolicy
 
 
@@ -34,6 +39,8 @@ _FAMILIES = {
                                   "activation": "relu"}),
     "CNN": (CnnPolicy, {}),
     "AZ-ResNet": (ResNetPolicy, {"filters": 256, "blocks": 19, "value_hidden": 256}),
+    "KataGo-NBT": (NbtPolicy, {"trunk": 384, "mid": 192, "gpool": 64, "blocks": 18,
+                               "gpool_every": 3, "p1": 48, "g1": 48, "v1": 96, "v2": 128}),
 }
 
 
@@ -43,7 +50,7 @@ def _family(family: str):
     return _FAMILIES[family]
 
 
-Policy = MlpPolicy | CnnPolicy | ResNetPolicy
+Policy = MlpPolicy | CnnPolicy | ResNetPolicy | NbtPolicy
 
 
 def family_class(family: str) -> type:
@@ -70,5 +77,5 @@ def policy_template(family: str, n_actions: int) -> Policy:
     return cls(n_actions, init=False, **widths)
 
 
-__all__ = ["CnnPolicy", "MlpPolicy", "ResNetPolicy", "family_class", "make_policy",
+__all__ = ["CnnPolicy", "MlpPolicy", "NbtPolicy", "ResNetPolicy", "family_class", "make_policy",
            "policy_template"]

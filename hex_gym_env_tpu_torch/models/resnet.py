@@ -25,7 +25,7 @@ draw), the loader's template.
 
 Convolutions run in full float32 (``cnn.full_float32``).  ``bind`` takes
 the state dict as the module's own (``models/mlp.assign``), then, for each
-3x3 conv that ``ops/winograd.takes`` (C_in = C_out a multiple of 128, the
+3x3 conv that ``ops/winograd.takes`` (C_in and C_out multiples of 64, the
 weight float32 on a CUDA device: the tower's convs, not the input conv),
 builds its filter image once (``winograd.FilterImage``: the Winograd
 F(4x4, 3x3) transform of the bound weight, in float64, rounded once), kept
@@ -196,13 +196,18 @@ class ResNetPolicy(nn.Module):
             new_stats[f"{name}.bn.var"] = var
         return torch.relu(y).reshape(y.shape[0], -1)
 
+    def convs3x3(self) -> list:
+        """Every 3x3 ``ConvBn``, the input conv's and the blocks', in the
+        forward's order."""
+        return [self.conv_in] + [h for block in self.blocks for h in (block.a, block.b)]
+
     def bind(self, params: Mapping[str, torch.Tensor]) -> None:
         """Take ``params`` (a state dict, BatchNorm's statistics included)
         as the module's own with no copy (``models/mlp.assign``), then give
         each 3x3 conv that ``winograd.takes`` its filter image, and every
         other none."""
         assign(self, params)
-        for layer in [self.conv_in] + [h for block in self.blocks for h in (block.a, block.b)]:
+        for layer in self.convs3x3():
             weight = layer.conv.weight
             layer.image = (winograd.FilterImage.of(weight) if winograd.takes(weight, self.board)
                            else None)

@@ -37,8 +37,27 @@ after BatchNorm and before the ReLU,
 
 bit for bit ``BatchNorm.forward``, ``+ skip`` and ``torch.relu``, written
 over ``y``: the same kernel, counted as ``launch.cnn_epilogue_residual``.
+
+``preact(y, skip, mean, mul, bn_bias, board_bias=None)`` is the
+pre-activation tower's layer (``models/nbt.py``: the residual stream is
+never normalized, each conv's input is BatchNorm and ReLU of it).  It
+returns ``(s, a)``,
+
+    s = y + skip
+    a = relu((((s + board_bias) - mean) * mul) + bn_bias)
+
+``s`` the stream kept for the next skip (with ``skip`` None, ``y`` itself),
+``a`` the next conv's input, a new contiguous tensor; ``board_bias``, where
+given, is (B, C), one value a board and channel (the pooled block's bias),
+taken only without a skip.  ``y`` may be a channel slice of a wider NCHW
+tensor (its boards contiguous, 16-byte aligned and a multiple of 4 floats
+apart; the pooled conv's output split in two); ``skip`` contiguous, of
+``y``'s shape.  Any C with C H W a multiple of 4.  Bit for bit the eager
+chain's add, ``BatchNorm.forward`` and ``torch.relu``: the same kernel,
+counted as ``launch.cnn_epilogue_preact``, with ``s`` written over ``y``.
+
 A CUDA tensor goes to the kernel, a CPU one to the plain PyTorch twin
-(``epilogue_twin``).
+(``epilogue_twin``, ``preact_twin``).
 """
 
 from __future__ import annotations
@@ -80,6 +99,14 @@ def _check(y: torch.Tensor, vectors: dict, skip: torch.Tensor | None = None) -> 
         raise ValueError(f"y's channels must divide 256, got {C}")
     if C * H * W % 4:
         raise ValueError(f"y's boards must be a multiple of 4 floats, got {C} x {H} x {W}")
+    _check_vectors(y, C, vectors)
+    if skip is not None:
+        _check_skip(y, skip)
+
+
+def _check_vectors(y: torch.Tensor, C: int, vectors: dict) -> None:
+    """Raise unless each vector is a contiguous float32 (C,) tensor on
+    ``y``'s device."""
     for name, v in vectors.items():
         if v.shape != (C,):
             raise ValueError(f"{name} must have shape ({C},), got {tuple(v.shape)}")
@@ -89,8 +116,11 @@ def _check(y: torch.Tensor, vectors: dict, skip: torch.Tensor | None = None) -> 
             raise ValueError(f"{name} must be contiguous")
         if v.device != y.device:
             raise ValueError(f"{name} lies on {v.device}, y on {y.device}")
-    if skip is None:
-        return
+
+
+def _check_skip(y: torch.Tensor, skip: torch.Tensor) -> None:
+    """Raise unless ``skip`` is a contiguous, 16-byte aligned float32
+    tensor of ``y``'s shape on its device."""
     if skip.shape != y.shape:
         raise ValueError(f"skip must have y's shape {tuple(y.shape)}, got {tuple(skip.shape)}")
     if skip.dtype != torch.float32:
@@ -139,3 +169,71 @@ def residual(y: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bn_bias: to
     if not y.is_cuda:
         return epilogue_twin(y, None, mean, mul, bn_bias, skip=skip)
     return _launch("cnn_epilogue_residual", y, None, mean, mul, bn_bias, skip, False)
+
+
+def preact_twin(y: torch.Tensor, skip: torch.Tensor | None, mean: torch.Tensor,
+                mul: torch.Tensor, bn_bias: torch.Tensor,
+                board_bias: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch of the pre-activation launch: the eager chain's ops in
+    its order, ``(s, a)`` on new tensors (``s`` is ``y`` without a skip)."""
+    s = y if skip is None else y + skip
+    t = s if board_bias is None else s + board_bias[:, :, None, None]
+    a = torch.relu((t - mean[:, None, None]) * mul[:, None, None] + bn_bias[:, None, None])
+    return s, a
+
+
+def _check_preact(y: torch.Tensor, skip, vectors: dict, board_bias) -> None:
+    """Raise unless ``y`` is a float32 (B, C, H, W) tensor whose boards are
+    each contiguous, 16-byte aligned and a multiple of 4 floats apart, with
+    C H W a multiple of 4; ``skip``, where given, a contiguous, 16-byte
+    aligned float32 tensor of its shape on its device; each vector a
+    contiguous float32 (C,) tensor on its device; and ``board_bias``, where
+    given (only without a skip), a contiguous float32 (B, C) tensor on its
+    device."""
+    if y.dim() != 4:
+        raise ValueError(f"y must be (B, C, H, W), got shape {tuple(y.shape)}")
+    if y.dtype != torch.float32:
+        raise ValueError(f"y must be torch.float32, got {y.dtype}")
+    B, C, H, W = y.shape
+    if C < 1 or C * H * W % 4:
+        raise ValueError(f"y's boards must be a multiple of 4 floats, got {C} x {H} x {W}")
+    if y.stride()[1:] != (H * W, W, 1) or (B > 1 and (y.stride(0) < C * H * W
+                                                      or y.stride(0) % 4)):
+        raise ValueError("y's boards must each be contiguous, a multiple of 4 floats apart")
+    if y.data_ptr() % 16:
+        raise ValueError("y must be 16-byte aligned")
+    if skip is not None:
+        _check_skip(y, skip)
+    _check_vectors(y, C, vectors)
+    if board_bias is None:
+        return
+    if skip is not None:
+        raise ValueError("a board bias is taken only without a skip")
+    if board_bias.shape != (B, C):
+        raise ValueError(f"board_bias must have shape ({B}, {C}), got {tuple(board_bias.shape)}")
+    if board_bias.dtype != torch.float32:
+        raise ValueError(f"board_bias must be torch.float32, got {board_bias.dtype}")
+    if not board_bias.is_contiguous():
+        raise ValueError("board_bias must be contiguous")
+    if board_bias.device != y.device:
+        raise ValueError(f"board_bias lies on {board_bias.device}, y on {y.device}")
+
+
+def preact(y: torch.Tensor, skip: torch.Tensor | None, mean: torch.Tensor, mul: torch.Tensor,
+           bn_bias: torch.Tensor, board_bias: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(s, a)``: ``s = y + skip`` (``y`` without a skip) and ``a =
+    relu((((s + board_bias) - mean) * mul) + bn_bias)``, as the module
+    docstring says: the kernel for a CUDA tensor (``s`` written over ``y``,
+    counted as ``launch.cnn_epilogue_preact``), the twin for a CPU one."""
+    _check_preact(y, skip, {"mean": mean, "mul": mul, "bn_bias": bn_bias}, board_bias)
+    if not y.is_cuda:
+        return preact_twin(y, skip, mean, mul, bn_bias, board_bias)
+    B, C, H, W = y.shape
+    a = torch.empty((B, C, H, W), dtype=y.dtype, device=y.device)
+    if a.numel():
+        cuda_lib.launch("cnn_epilogue_preact", "hex_cnn_preact", y.data_ptr(), cuda_lib.ptr(skip),
+                        mean.data_ptr(), mul.data_ptr(), bn_bias.data_ptr(),
+                        cuda_lib.ptr(board_bias), a.data_ptr(), B, C, H * W,
+                        y.stride(0) if B > 1 else C * H * W)
+    return y, a

@@ -51,7 +51,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 KERNELS = (
     "k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
     "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout", "mlp_forward", "mlp_image",
-    "cnn_epilogue", "cnn_epilogue_residual", "winograd_conv",
+    "cnn_epilogue", "cnn_epilogue_residual", "cnn_epilogue_preact", "winograd_conv",
 )
 _COUNTER = {name: f"launch.{name}" for name in KERNELS}
 
@@ -117,7 +117,8 @@ _ARGTYPES = {
     "hex_mlp_forward": [P, I, I, I, I, I, P, P, P, I, P],  # image, dims, x, logits, value, B
     "hex_mlp_forward_plan": [I] * 5 + [P],  # launches nothing: no stream
     "hex_cnn_epilogue": [P] * 7 + [I, I, I, I, P],  # y, 4 vectors, skip, out; B, C, HW, hwc
-    "hex_winograd_conv": [P] * 5 + [I, I, I, P],  # x, image, V, M, y; B, C, n
+    "hex_cnn_preact": [P] * 7 + [I, I, I, I, P],  # y, skip, 3 vectors, board bias, a; B, C, HW, ys
+    "hex_winograd_conv": [P] * 5 + [I, I, I, I, P],  # x, image, V, M, y; B, C, K, n
 }
 
 _lock = threading.Lock()

@@ -1,26 +1,37 @@
-"""The residual tower's 3x3 conv as a float32 Winograd F(4x4, 3x3) conv.
+"""The residual towers' 3x3 convs as a float32 Winograd F(4x4, 3x3) conv.
 
 It replaces no TPU kernel: the JAX package has no residual tower.  On the
-card cuDNN ran the tower's 256 -> 256 3x3 convs at 400 11x11 boards with an
-FFT algorithm (the board padded to 16x16, the bound filters flipped and
-transformed again on every call), 91% of the AZ-ResNet forward.  Here:
+card cuDNN ran the AZ-ResNet tower's 256 -> 256 3x3 convs at 400 11x11
+boards with an FFT algorithm (the board padded to 16x16, the bound filters
+flipped and transformed again on every call), 91% of the AZ-ResNet
+forward.  Here:
 
 - ``filter_image(weight)``: a conv's weight (K, C, 3, 3) transformed once,
   ``U = G g G^T`` for each (output, input) channel pair, computed in float64
   and rounded once to float32, laid out as the product's B operand, (36, C,
-  K), point ``xi = 6 a + b`` first.  ``models/resnet.ResNetPolicy.bind``
-  builds one for each conv the rule takes (``takes``: a 3x3 conv with
-  C_in = C_out a multiple of 128, on a board of at most ``MAX_BOARD``, its
-  weight float32 on a CUDA device) and keeps it with the weight it was built
-  from (``FilterImage``).
-- ``conv(x, u)``: the conv of boards x (B, C, n, n) by an image, with pad 1,
-  y (B, C, n, n) float32: for a CUDA tensor one C entry, ``csrc/
-  winograd_kernels.cu`` ``hex_winograd_conv`` (the input transform, 36
-  batched float32 FFMA products, the output transform; counter
+  K), point ``xi = 6 a + b`` first.  ``models/resnet.ResNetPolicy.bind`` and
+  ``models/nbt.NbtPolicy.bind`` build one for each conv the rule takes
+  (``takes``: a 3x3 conv with C_in and C_out each a multiple of
+  ``CHANNELS``, 64, not necessarily equal, on a board of at most
+  ``MAX_BOARD``, its weight float32 on a CUDA device) and keep it with the
+  weight it was built from (``FilterImage``).
+- ``conv(x, u)``: the conv of boards x (B, C, n, n) by an image (36, C, K),
+  with pad 1, y (B, K, n, n) float32: for a CUDA tensor one C entry,
+  ``csrc/winograd_kernels.cu`` ``hex_winograd_conv`` (the input transform,
+  36 batched float32 FFMA products, the output transform; counter
   ``launch.winograd_conv``; its note there gives the bound and the design),
-  its scratch V (C, 36, Ppad) and M (Ppad, 36, C) from ``torch.empty``; for
+  its scratch V (C, 36, Ppad) and M (Ppad, 36, K) from ``torch.empty``; for
   a CPU tensor the plain PyTorch twin, ``conv_twin``, the same Winograd
   arithmetic.  It raises on a tensor the kernel does not take.
+
+Widths that are a multiple of 64 and not of 128 (the KataGo tower's 192)
+take a second template instance of the product, 64 columns a CTA tile
+(128 threads, the 128-column instance's warp and thread tiles, half the
+warps across), not the 128-column tile with a ragged edge nor a 128 and a
+64 in two launches: every output channel then sits in a full tile, and the
+128-column instance, which the 256 -> 256 convs run, keeps its tiling.
+Each output's sum runs over the input channels in the same order in both
+instances, so their arithmetic is the same.
 
 The tiles cover the board with ceil(n/4)^2 tiles of 4x4 outputs; each
 tile's 6x6 input patch reads zeros outside the board (the conv's pad 1),
@@ -63,7 +74,7 @@ BT = ((1, -3 * _h, -2, 3 * _h, 1, 0),
 POINTS = 36  # 6 x 6 transformed points a tile
 TILE = 4  # a tile's outputs a side
 MAX_BOARD = 19  # kMaxBoard
-CHANNELS = 128  # C a multiple of the product's tile width (kBN)
+CHANNELS = 64  # C and K multiples of the product's narrow tile width (kChannels)
 ROWS = 128  # the product's rows (tiles) padded to its tile height (kBM)
 
 
@@ -83,11 +94,12 @@ def padded_rows(B: int, n: int) -> int:
 
 
 def takes(weight: torch.Tensor, board: int) -> bool:
-    """The rule: a 3x3 conv weight (C, C, 3, 3) with C a multiple of
-    ``CHANNELS``, float32 on a CUDA device, for boards of side ``board`` at
-    most ``MAX_BOARD``."""
+    """The rule: a 3x3 conv weight (K, C, 3, 3) with C and K each a
+    multiple of ``CHANNELS``, float32 on a CUDA device, for boards of side
+    ``board`` at most ``MAX_BOARD``."""
     return (weight.dim() == 4 and weight.shape[2:] == (3, 3)
-            and weight.shape[0] == weight.shape[1] and weight.shape[0] % CHANNELS == 0
+            and weight.shape[0] % CHANNELS == 0 and weight.shape[1] % CHANNELS == 0
+            and weight.shape[0] > 0 and weight.shape[1] > 0
             and 1 <= board <= MAX_BOARD and weight.is_cuda and weight.dtype == torch.float32)
 
 
@@ -137,8 +149,8 @@ def conv_twin(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def _check(x: torch.Tensor, u: torch.Tensor) -> None:
     """Raise unless ``x`` is a contiguous, 16-byte aligned float32 (B, C, n,
     n) tensor with C a multiple of ``CHANNELS`` and n at most ``MAX_BOARD``,
-    and ``u`` a contiguous, 16-byte aligned float32 (36, C, C) image on its
-    device."""
+    and ``u`` a contiguous, 16-byte aligned float32 (36, C, K) image on its
+    device, K a multiple of ``CHANNELS``."""
     if x.dim() != 4 or x.shape[2] != x.shape[3]:
         raise ValueError(f"x must be (B, C, n, n), got shape {tuple(x.shape)}")
     B, C, n, _ = x.shape
@@ -146,8 +158,9 @@ def _check(x: torch.Tensor, u: torch.Tensor) -> None:
         raise ValueError(f"x's channels must be a multiple of {CHANNELS}, got {C}")
     if not 1 <= n <= MAX_BOARD:
         raise ValueError(f"x's boards must be 1 to {MAX_BOARD} a side, got {n}")
-    if u.shape != (POINTS, C, C):
-        raise ValueError(f"u must have shape ({POINTS}, {C}, {C}), got {tuple(u.shape)}")
+    if u.dim() != 3 or u.shape[:2] != (POINTS, C) or u.shape[2] < CHANNELS or u.shape[2] % CHANNELS:
+        raise ValueError(f"u must have shape ({POINTS}, {C}, K), K a multiple of {CHANNELS}, "
+                         f"got {tuple(u.shape)}")
     for name, t in (("x", x), ("u", u)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be torch.float32, got {t.dtype}")
@@ -167,11 +180,12 @@ def conv(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return conv_twin(x, u)
     B, C, n, _ = x.shape
+    K = u.shape[2]
     rows = padded_rows(B, n)
     v = torch.empty((C, POINTS, rows), dtype=x.dtype, device=x.device)
-    m = torch.empty((rows, POINTS, C), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
+    m = torch.empty((rows, POINTS, K), dtype=x.dtype, device=x.device)
+    y = torch.empty((B, K, n, n), dtype=x.dtype, device=x.device)
     if B:
         cuda_lib.launch("winograd_conv", "hex_winograd_conv", x.data_ptr(), u.data_ptr(),
-                        v.data_ptr(), m.data_ptr(), y.data_ptr(), B, C, n)
+                        v.data_ptr(), m.data_ptr(), y.data_ptr(), B, C, K, n)
     return y

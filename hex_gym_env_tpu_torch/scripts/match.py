@@ -17,10 +17,14 @@ one call of the module; the model picks its kernels.  On the card an MLP
 side forwards as one launch of the forward kernel (``MlpPolicy.bind``
 builds the image of its weights in one launch, ``ops/mlp_forward``), and a
 CNN side's layers are cuDNN's conv and one launch of the epilogue kernel
-each (``ops/cnn_epilogue``), then cuBLAS; an AZ-ResNet side's 3x3 layers
-likewise, a residual block's second with the skip operand, and its heads
-on the eager chain (``models/resnet.py``); on the CPU every side runs its
-plain PyTorch forward.  Samples are Gumbel-max draws over
+each (``ops/cnn_epilogue``), then cuBLAS; an AZ-ResNet side's 3x3 convs
+on the Winograd kernels (``ops/winograd``), each followed by one epilogue
+launch, a residual block's second with the skip operand, and its heads on
+the eager chain (``models/resnet.py``); a KataGo-NBT side's 3x3 convs on
+the Winograd kernels, its 1x1 convs cuDNN's, each BatchNorm and ReLU with
+the skip that closes before it one pre-activation epilogue launch, its
+poolings and heads on the eager chain (``models/nbt.py``); on the CPU
+every side runs its plain PyTorch forward.  Samples are Gumbel-max draws over
 32-bit words (``ops/masked.sample``), drawn from a ``torch.Generator``
 seeded by ``--seed`` or given as ``bits``; the JAX package draws from its
 own key, so a stochastic match agrees with it in distribution, and with
@@ -38,7 +42,9 @@ side's forward opens ``forward.conv``, ``forward.norm`` (5 each) and
 ``forward.dense`` inside it (``models/cnn.py``), an AZ-ResNet side's
 ``forward.conv``, ``forward.norm`` (one each a 3x3 layer, 39 at 19 blocks)
 and ``forward.heads`` (``models/resnet.py``), and counts
-``residual_blocks``.  ``--profile DIR``
+``residual_blocks``; a KataGo-NBT side's ``forward.conv`` (109),
+``forward.norm`` (115), ``forward.gpool`` (6) and ``forward.heads``
+(``models/nbt.py``), and counts ``nbt_blocks`` and ``gpool_layers``.  ``--profile DIR``
 plays the match inside ``profiling.trace(DIR)``: it writes
 ``DIR/trace.json`` with the spans as ``hex.*`` ranges and prints, to
 stderr, a line per span name (calls, total and self ms) and the counters.
@@ -115,7 +121,9 @@ def run_match(board_size: int, games: int, spec_a: str, spec_b: str,
     launch of the epilogue kernel) and one ``forward.dense`` (the flatten,
     features, towers and heads), each with the device clock too; an
     AZ-ResNet side's a ``forward.conv`` and a ``forward.norm`` a 3x3 layer
-    and one ``forward.heads``.
+    and one ``forward.heads``; a KataGo-NBT side's a ``forward.conv`` a
+    conv, a ``forward.norm`` a BatchNorm, a ``forward.gpool`` a pooling of
+    the trunk and one ``forward.heads``.
     """
     with profiling.span("match", unit=next(_match_ids)):
         profiling.count("matches")

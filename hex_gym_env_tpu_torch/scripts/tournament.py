@@ -12,7 +12,7 @@ reported on the Elo scale anchored at the first player = 0.
 ``--family`` names the policy family of every ``params:`` player
 (``models._FAMILIES``; ``MLP-default`` unless given), so a tournament of
 AlphaZero-style nets is ``--board-size 11 --family AZ-ResNet params:a.pt
-params:b.pt ...``.
+params:b.pt ...``, and one of KataGo-style nets ``--family KataGo-NBT``.
 
 The reference has no rating machinery (its ``config.ini`` ``[ELO]`` section
 is vestigial upstream-HexHex content that nothing reads — SURVEY.md §2);

@@ -148,7 +148,11 @@ def weight_like(shape, cuda: bool = True, dtype=torch.float32):
     ((256, 256, 3, 3), 11, True, torch.float64, False),
     ((256, 1, 3, 3), 11, True, torch.float32, False),  # the input conv
     ((2, 256, 1, 1), 11, True, torch.float32, False),  # a head's 1x1 conv
-    ((64, 64, 3, 3), 9, True, torch.float32, False),  # the CNN's width
+    ((64, 64, 3, 3), 9, True, torch.float32, True),  # the narrow product tile's width
+    ((192, 192, 3, 3), 11, True, torch.float32, True),  # the KataGo tower's
+    ((192, 128, 3, 3), 11, True, torch.float32, True),  # C_in 128, C_out 192
+    ((192, 96, 3, 3), 11, True, torch.float32, False),
+    ((96, 96, 3, 3), 11, True, torch.float32, False),
     ((256, 256, 3, 3), 21, True, torch.float32, False),  # past the largest board
 ])
 def test_the_rule(shape, board, cuda, dtype, takes):
@@ -266,13 +270,13 @@ def test_the_rule_forced_on_the_cpu_runs_the_tower_through_the_twin(monkeypatch)
 def _refusal(case: str):
     x, u = torch.randn((2, 128, 5, 5)), torch.randn((36, 128, 128))
     if case == "channels":
-        x, u = torch.randn((2, 64, 5, 5)), torch.randn((36, 64, 64))
+        x, u = torch.randn((2, 96, 5, 5)), torch.randn((36, 96, 96))
     elif case == "board":
         x = torch.randn((2, 128, 21, 21))
     elif case == "square":
         x = torch.randn((2, 128, 5, 6))
     elif case == "image":
-        u = torch.randn((36, 128, 256))
+        u = torch.randn((36, 128, 96))
     elif case == "dtype":
         x = x.double()
     elif case == "strided":
@@ -285,10 +289,10 @@ def _refusal(case: str):
 
 
 @pytest.mark.parametrize("case,message", [
-    ("channels", "x's channels must be a multiple of 128, got 64"),
+    ("channels", "x's channels must be a multiple of 64, got 96"),
     ("board", "x's boards must be 1 to 19 a side, got 21"),
     ("square", r"x must be \(B, C, n, n\), got shape \(2, 128, 5, 6\)"),
-    ("image", r"u must have shape \(36, 128, 128\), got \(36, 128, 256\)"),
+    ("image", r"u must have shape \(36, 128, K\), K a multiple of 64, got \(36, 128, 96\)"),
     ("dtype", "x must be torch.float32"), ("strided", "x must be contiguous"),
     ("unaligned", "x must be 16-byte aligned"), ("device", "u lies on meta, x on cpu"),
 ])

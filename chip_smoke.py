@@ -180,9 +180,10 @@ and the cell's agent's forward with the tower on it and on cuDNN.
 
 only builds the kernels and runs the ``[nbt]`` phase: at the KataGo-NBT
 match's shape, the widened Winograd conv (192 -> 192, 128 -> 192) and the
-pre-activation epilogue against float64 and their twins, their times
-beside their bounds, and the cell's agent's forward with the kernels and
-on the eager chain.
+pre-activation epilogue against float64 and their twins, the 1x1 conv
+(384 -> 192, 192 -> 384) against float64 and cuDNN's, their times beside
+their bounds, and the cell's agent's forward with the kernels and on the
+eager chain.
 """
 
 from __future__ import annotations
@@ -1553,10 +1554,11 @@ RES_FORWARD_TOL = 1e-4
 
 @contextlib.contextmanager
 def images_dropped(model):
-    """Inside: every 3x3 conv of the AZ-ResNet or KataGo-NBT ``model``
-    without its filter image, so it runs ``F.conv2d`` as the eager chain
-    does; restored after."""
-    layers = model.convs3x3()
+    """Inside: every conv of the AZ-ResNet or KataGo-NBT ``model`` without
+    its image (the 3x3 convs' Winograd filter images, the KataGo blocks' 1x1
+    transposes), so it runs ``F.conv2d`` as the eager chain does; restored
+    after."""
+    layers = model.convs3x3() + (model.convs1x1() if hasattr(model, "convs1x1") else [])
     images = [layer.image for layer in layers]
     try:
         for layer in layers:
@@ -1805,6 +1807,9 @@ def residual_phase(dev) -> dict:
 # limits and their derivation): a share of the output's RMS and of its
 # largest magnitude
 CONV_RMS_TOL, CONV_MAX_TOL = 4e-6, 1.5e-5
+# the 1x1 conv against float64 F.conv2d (tests/test_torch_pointwise.py's
+# limits: the direct float32 sum reads 1.8e-7 to 2.5e-7 of the RMS)
+PW_RMS_TOL, PW_MAX_TOL = 1e-6, 1e-5
 WINO_KERNELS = ("wino_input_kernel", "wino_gemm_kernel", "wino_output_kernel")
 
 
@@ -1954,16 +1959,19 @@ def nbt_phase(dev) -> dict:
     (``cnn_epilogue.preact``) bit for bit its twin at 384 channels with the
     skip, 192 without and the pooled 128-channel slice with the board bias,
     its times beside its bound by bytes and the eager chain it displaces;
-    and the agent's forward with the kernels and on the eager chain: bit
-    for bit with the convs held on cuDNN, within ``NBT_FORWARD_TOL`` as it
-    runs, its times, device ops and memory peak.  Returns the kernel
-    table's row, its launches those counted in one forward."""
+    the 1x1 conv (``pointwise.conv``) at 384 -> 192 and 192 -> 384 against
+    float64 ``F.conv2d``, its call and device times and rate beside its
+    bound (operations) and cuDNN's ``F.conv2d``; and the agent's forward
+    with the kernels and on the eager chain: bit for bit with the convs held
+    on cuDNN, within ``NBT_FORWARD_TOL`` as it runs, its times, device ops
+    and memory peak.  Returns the kernel table's row, its launches those
+    counted in one forward."""
     import torch
     import torch.nn.functional as F
 
     from benchmark import harness, work_nbt
     from hex_gym_env_tpu_torch.models import cnn, nbt
-    from hex_gym_env_tpu_torch.ops import cnn_epilogue, cuda_lib, winograd
+    from hex_gym_env_tpu_torch.ops import cnn_epilogue, cuda_lib, pointwise, winograd
 
     n, B = NBT_N, NBT_B
     drv = harness.load_module(harness.driver_file("match_nbt"), "smoke_nbt")
@@ -2013,6 +2021,43 @@ def nbt_phase(dev) -> dict:
                   f"{100 * bound / dev_ms:.1f}% of it, product "
                   f"{flops / parts['wino_gemm_kernel'] / 1e9:.2f} TFLOP/s; cuDNN's F.conv2d "
                   f"{lib_ms:.5f} ms")
+        pws = {}
+        for label, layer in (("384 -> 192", model.blocks[0].pre),
+                             ("192 -> 384", model.blocks[0].post)):
+            w, wt = layer.conv.weight.detach(), layer.image.u
+            cin, cout = w.shape[1], w.shape[0]
+            x = torch.relu(torch.randn((B, cin, n, n), generator=g)).to(dev)
+            cuda_lib.reset_launches()
+            y = pointwise.conv(x, wt)
+            lib_y = F.conv2d(x, w)
+            want = F.conv2d(x.double(), w.double())
+            torch.cuda.synchronize()
+            if cuda_lib.launches["pointwise_conv"] != 1 or y.shape != (B, cout, n, n):
+                fail(f"[nbt] a 1x1 {label} call launched {dict(cuda_lib.launches)}, {y.shape}")
+            scale, rms_scale = float(want.abs().max()), float(want.pow(2).mean().sqrt())
+            errs = {}
+            for who, got in (("kernel", y), ("cuDNN", lib_y)):
+                err = got.double() - want
+                errs[who] = (float(err.pow(2).mean().sqrt()) / rms_scale,
+                             float(err.abs().max()) / scale)
+            rms, worst = errs["kernel"]
+            if not (rms < PW_RMS_TOL and worst < PW_MAX_TOL):
+                fail(f"[nbt] the 1x1 {label} kernel is not the conv: {rms}, {worst}")
+            flops = 2.0 * B * n * n * cin * cout
+            nbytes = 4 * B * (cin + cout) * n * n + 4 * cin * cout
+            bound, by = bound_ms(nbytes, flops)
+            call = cuda_ms(lambda: pointwise.conv(x, wt), 50)
+            dev_ms = device_ms(lambda: pointwise.conv(x, wt), ["pointwise_kernel"], 20)
+            lib_ms = cuda_ms(lambda: F.conv2d(x, w), 50)
+            pws[label] = {"call": call, "device": dev_ms, "bound": bound, "library": lib_ms,
+                          "tflops": flops / dev_ms / 1e9, "library_tflops": flops / lib_ms / 1e9,
+                          "rms_err": rms, "max_err": worst}
+            print(f"[nbt] 1x1 conv {label}, {n}x{n}, {B} boards: against float64 F.conv2d "
+                  f"{rms:.3g} of the RMS, {worst:.3g} of the largest (cuDNN's "
+                  f"{errs['cuDNN'][0]:.3g}, {errs['cuDNN'][1]:.3g}); call {call:.5f} ms, device "
+                  f"{dev_ms:.5f} ms, {flops / dev_ms / 1e9:.2f} TFLOP/s; bound {bound:.5f} ms "
+                  f"({by}: {flops / 1e9:.3f} GFLOP), {100 * bound / dev_ms:.1f}% of it; cuDNN's "
+                  f"F.conv2d {lib_ms:.5f} ms (CUDA events), {flops / lib_ms / 1e9:.2f} TFLOP/s")
         epis = {}
         for label, C, skip, board in (("384 with the skip", 384, True, False),
                                       ("192 without", 192, False, False),
@@ -2047,6 +2092,7 @@ def nbt_phase(dev) -> dict:
         forwards = forward_paths(
             "nbt", nbt.NbtPolicy, lambda: model(boards),
             {"winograd_conv": len(work_nbt.convs3x3(m)),
+             "pointwise_conv": 2 * NBT_WIDTHS["blocks"],
              "cnn_epilogue_preact": len(work_nbt.preacts(m))},
             10, 3, B * work_nbt.policy_flops(m), lambda: images_dropped(model),
             NBT_FORWARD_TOL)
@@ -2054,11 +2100,13 @@ def nbt_phase(dev) -> dict:
     print(f"[nbt] memory peak {peak} bytes over the forwards (both sides' agent held: one)")
     t = epis["384 with the skip"]
     c = convs["192 -> 192"]
-    return {"name": "cnn_epilogue_preact + winograd_conv (64-column)", "route": "cuda",
-            "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu, winograd_kernels.cu",
+    return {"name": "cnn_epilogue_preact + winograd_conv (64-column) + pointwise_conv",
+            "route": "cuda", "source": "hex_gym_env_tpu_torch/csrc/hex_kernels.cu, "
+                                       "winograd_kernels.cu, pointwise_kernels.cu",
             "replaces": None, "launches": {"cnn_epilogue_preact": len(work_nbt.preacts(m)),
-                                           "winograd_conv": len(work_nbt.convs3x3(m))},
-            "launches_per": "forward", "preact": epis, "conv": convs,
+                                           "winograd_conv": len(work_nbt.convs3x3(m)),
+                                           "pointwise_conv": 2 * NBT_WIDTHS["blocks"]},
+            "launches_per": "forward", "preact": epis, "conv": convs, "pointwise": pws,
             "ms": t["call"], "device_ms": t["device"], "bound_ms": t["bound"],
             "conv_ms": c["call"], "conv_device_ms": c["device"], "conv_bound_ms": c["bound"],
             "memory_peak_bytes": peak, **forwards}

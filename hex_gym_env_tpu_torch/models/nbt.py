@@ -46,14 +46,17 @@ the state dict as the module's own (``models/mlp.assign``, no copy), then,
 for each 3x3 conv that ``ops/winograd.takes`` (C_in and C_out multiples of
 64, the weight float32 on a CUDA device: every conv of the blocks, the
 pooled one as one ``mid`` -> ``mid`` image, not the input conv), builds
-its filter image once (``winograd.FilterImage``), kept on the layer as
-``image``; and it keeps each BatchNorm's factor rsqrt(var + eps) x scale
-once (``Factor``, in ``factors``), which the forward would otherwise
-compute again on every call, three small launches a BatchNorm.  At
-inference on the card (float32 on a CUDA device, grad off;
+its filter image once (``winograd.FilterImage``), and for each 1x1 conv of
+the blocks that ``ops/pointwise.takes`` (the same widths rule: the 36 of
+384 -> 192 and 192 -> 384) its transpose (``pointwise.image_of``), kept on
+the layer as ``image``; and it keeps each BatchNorm's factor rsqrt(var +
+eps) x scale once (``Factor``, in ``factors``), which the forward would
+otherwise compute again on every call, three small launches a BatchNorm.
+At inference on the card (float32 on a CUDA device, grad off;
 ``CnnPolicy._fuses``) each 3x3 conv with a current image is
-``winograd.conv``, each other conv (the input conv, the 1x1 convs)
-cuDNN's ``F.conv2d``; and each BNR is one launch of
+``winograd.conv``, each 1x1 conv with one ``pointwise.conv``, and the input
+conv cuDNN's ``F.conv2d``; the heads' 1x1 convs (48, 96 and 1 outputs)
+stay on the eager chain, as the heads do.  Each BNR is one launch of
 ``ops/cnn_epilogue.preact`` (on the kept factor where it is current),
 which also adds the skip where one closes (writing the stream ``s = y +
 skip`` over the conv's output and the next conv's input ``a =
@@ -94,7 +97,7 @@ from hex_gym_env_tpu_torch.models.mlp import (
     BareLinear,
     assign,
 )
-from hex_gym_env_tpu_torch.ops import cnn_epilogue, winograd
+from hex_gym_env_tpu_torch.ops import cnn_epilogue, pointwise, winograd
 from hex_gym_env_tpu_torch.utils import profiling
 
 
@@ -146,7 +149,8 @@ class Factor(NamedTuple):
 
 class PreConv(nn.Module):
     """``bn`` over the input's channels (its ReLU after), then ``conv``;
-    ``image``, the conv's Winograd filter image where ``bind`` built one."""
+    ``image``, the conv's Winograd filter image (3x3) or transpose (1x1)
+    where ``bind`` built one."""
 
     def __init__(self, cin: int, cout: int, kernel: int, generator, init: bool = True,
                  gain: float = ORTHO_HIDDEN_GAIN):
@@ -276,7 +280,7 @@ class NbtPolicy(nn.Module):
         def conv(a, weight, image=None):
             with profiling.span("forward.conv", device=a.device):
                 if fused and image is not None and image.current(weight):
-                    return winograd.conv(a, image.u)
+                    return (winograd if weight.shape[-1] == 3 else pointwise).conv(a, image.u)
                 return F.conv2d(a, weight, None, padding=weight.shape[-1] // 2)
 
         def norm(name, layer, y, skip=None, board_bias=None):
@@ -362,10 +366,15 @@ class NbtPolicy(nn.Module):
         return [layer for block in self.blocks for inner in block.inner
                 for layer in (inner.a, inner.b)]
 
+    def convs1x1(self) -> list:
+        """Every 1x1 ``PreConv`` of the blocks, in the forward's order."""
+        return [layer for block in self.blocks for layer in (block.pre, block.post)]
+
     def bind(self, params: Mapping[str, torch.Tensor]) -> None:
         """Take ``params`` (a state dict, BatchNorm's statistics included)
         as the module's own with no copy (``models/mlp.assign``), then give
-        each 3x3 conv that ``winograd.takes`` its filter image, and every
+        each 3x3 conv that ``winograd.takes`` its filter image and each 1x1
+        conv of the blocks that ``pointwise.takes`` its transpose, and every
         other none, and keep each BatchNorm's factor in ``factors``, by the
         name of the layer that holds it."""
         assign(self, params)
@@ -375,3 +384,6 @@ class NbtPolicy(nn.Module):
             weight = layer.conv.weight
             layer.image = (winograd.FilterImage.of(weight) if winograd.takes(weight, self.board)
                            else None)
+        for layer in self.convs1x1():
+            weight = layer.conv.weight
+            layer.image = pointwise.image_of(weight) if pointwise.takes(weight) else None

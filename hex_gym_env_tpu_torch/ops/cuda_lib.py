@@ -4,8 +4,9 @@ The kernels live in ``csrc/hex_kernels.cu`` (the rollout's K1-K4, the
 random-legal rollout K7, the match's policy forward and the conv
 forwards' epilogue),
 ``csrc/learner_kernels.cu`` (the learner's K5-K6), with the shared device
-code in ``csrc/hex_common.cuh``, and ``csrc/winograd_kernels.cu`` (the
-residual tower's Winograd conv), behind a plain C interface.  On first use
+code in ``csrc/hex_common.cuh``, ``csrc/winograd_kernels.cu`` (the
+residual towers' Winograd conv) and ``csrc/pointwise_kernels.cu`` (the
+KataGo tower's 1x1 conv), behind a plain C interface.  On first use
 each ``.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``), all at once
 in parallel, and linked into one shared library under ``_build/`` beside
 this package (listed in ``.gitignore``), keyed by a hash of the sources, and
@@ -40,7 +41,8 @@ from hex_gym_env_tpu_torch.utils import profiling
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-UNITS = ("hex_kernels.cu", "learner_kernels.cu", "winograd_kernels.cu")  # compiled one nvcc each
+# compiled one nvcc each
+UNITS = ("hex_kernels.cu", "learner_kernels.cu", "winograd_kernels.cu", "pointwise_kernels.cu")
 SOURCES = UNITS + ("hex_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,6 +54,7 @@ KERNELS = (
     "k1_step", "k2_agent", "k2_agent_image", "k3_bank", "k3_bank_image", "k4_rollout",
     "k4_rollout_bf16", "k5_gae", "k6_ppo", "k7_random_rollout", "mlp_forward", "mlp_image",
     "cnn_epilogue", "cnn_epilogue_residual", "cnn_epilogue_preact", "winograd_conv",
+    "pointwise_conv",
 )
 _COUNTER = {name: f"launch.{name}" for name in KERNELS}
 
@@ -119,6 +122,7 @@ _ARGTYPES = {
     "hex_cnn_epilogue": [P] * 7 + [I, I, I, I, P],  # y, 4 vectors, skip, out; B, C, HW, hwc
     "hex_cnn_preact": [P] * 7 + [I, I, I, I, P],  # y, skip, 3 vectors, board bias, a; B, C, HW, ys
     "hex_winograd_conv": [P] * 5 + [I, I, I, I, P],  # x, image, V, M, y; B, C, K, n
+    "hex_pointwise_conv": [P, P, P, I, I, I, I, P],  # x, W^T, y; B, C, K, n^2
 }
 
 _lock = threading.Lock()

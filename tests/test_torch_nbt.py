@@ -22,8 +22,8 @@ tests/test_torch_nbt.py -m chip --noconftest``): the pre-activation launch
 bit for bit its twin, with and without a skip and a board bias, on a
 channel slice; the widened conv's 64-column instance bit for bit the
 128-column instance's outputs; the forward with and without the kernels
-within the cell's ``logit_gap`` limit; and the kept BatchNorm factors
-bit for bit the computed ones.
+(the 1x1 convs' too) within the cell's ``logit_gap`` limit; and the kept
+BatchNorm factors bit for bit the computed ones.
 """
 
 import time
@@ -703,8 +703,8 @@ def test_the_cell_finds_its_files_and_reports_its_metrics(monkeypatch):
     per_layer = {m["name"] for m in harness.cell_metrics(man, CELL, "per_layer")}
     assert per_layer == {"device_idle_pct.match", "mfu_pct.match", "host_syncs.match",
                          "h2d_bytes.match", "ply_us.match", "load_ms.match",
-                         "forward_device_us.match", *NEW}
-    for name in NEW:
+                         "forward_device_us.match", "pointwise_kernel_pct.match", *NEW}
+    for name in (*NEW, "pointwise_kernel_pct.match"):
         assert harness.entry(man["per_layer"], name, "metric")["workloads"] == [CELL]
     for trace in ("0", "1"):
         args = run.parse(["--workload", CELL, "--seed", str(2 ** 31 + 1), "--seconds", "1",
@@ -896,11 +896,12 @@ def test_the_kept_factors_change_no_bit(cuda_device, driver):
 @pytest.mark.chip
 @pytest.mark.parametrize("widths,n,B", [({}, 11, 400), (SMALL, 5, 33)])
 def test_the_forward_with_and_without_the_kernels(cuda_device, driver, widths, n, B):
-    """The card's inference forward through the epilogue and the Winograd
-    kernels: 115 pre-activation launches and 72 conv launches a forward at
-    the published widths (7 of 8 convs at SMALL's); with the filter images dropped, bit for bit the
-    eager forward (grad on); with them within the cell's ``logit_gap`` limit
-    of it."""
+    """The card's inference forward through the epilogue, the Winograd
+    kernels and the 1x1 conv's: 115 pre-activation launches, 72 Winograd
+    conv launches and 36 1x1 conv launches a forward at the published widths
+    (7 of 8 3x3 convs and all 4 1x1 convs at SMALL's); with the images
+    dropped, bit for bit the eager forward (grad on); with them within the
+    cell's ``logit_gap`` limit of it."""
     widths = {**PUBLISHED, **widths}
     m = shape_of(n, widths)
     params, _ = driver.make(m, 5, cuda_device, 2.0, 0.1, driver.match.AGENT_BN_STD)
@@ -916,14 +917,18 @@ def test_the_forward_with_and_without_the_kernels(cuda_device, driver, widths, n
     with torch.no_grad():
         through = model(x)
     assert cuda_lib.launches["winograd_conv"] == taken
+    assert cuda_lib.launches["pointwise_conv"] == 2 * widths["blocks"]
     assert cuda_lib.launches["cnn_epilogue_preact"] == len(work_nbt.preacts(m))
-    images = [layer.image for layer in layers]
-    for layer in layers:
+    imaged = layers + model.convs1x1()
+    assert all(layer.image is not None for layer in model.convs1x1())
+    images = [layer.image for layer in imaged]
+    for layer in imaged:
         layer.image = None
     with torch.no_grad():
         held = model(x)
-    for layer, image in zip(layers, images):
+    for layer, image in zip(imaged, images):
         layer.image = image
+    assert cuda_lib.launches["pointwise_conv"] == 2 * widths["blocks"]
     model.requires_grad_(True)
     eager = model(x)
     torch.cuda.synchronize()
